@@ -9,15 +9,22 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
    no CUDA means exit 1 with no result;
 2. build the CUDA kernels of vtm_tpu_torch/csrc from the checkout (nvcc,
-   sm_90a);
-3. each kernel against its plain torch version, exactly, on the real chain
-   inputs of POC 0 of testdata/ai_full_hd1080_qp37.bit (1920x1080 4:2:0
-   8-bit, LMCS + deblock + SAO + ALF + CC-ALF), and on a numpy-seeded
-   10-bit 4:4:4 case; kernel and plain times from CUDA events;
-4. the main path: all-intra decode through
-   vtm_tpu_torch.decoder.declib.Decoder(device="cuda") of the 1080p stream
-   and three small streams (10-bit, 4:2:2, CC-ALF), every picture hash
-   checked, with launch counts that prove the chain ran through the kernels;
+   sm_90a, one process per source, in parallel);
+3. each kernel against its plain torch version, exactly:
+   - the filter kernels on the real chain inputs of POC 0 of
+     testdata/ai_full_hd1080_qp37.bit (1920x1080 4:2:0 8-bit, LMCS +
+     deblock + SAO + ALF + CC-ALF), and on a numpy-seeded 10-bit 4:4:4
+     case;
+   - the MC, DMVR-search, FIR and BDOF kernels on the inputs of every call
+     of the port's own CUDA decode of testdata/ra_full_bq416_qp37.bit
+     (416x240 RA, every inter tool on), and on numpy-seeded batches the
+     size of a 1080p 4:2:0 picture;
+   kernel and plain times from CUDA events, on the 1080p inputs;
+4. the main path through vtm_tpu_torch.decoder.declib.Decoder(device=
+   "cuda"): the 1080p all-intra stream, three small all-intra streams
+   (10-bit, 4:2:2, CC-ALF) and three inter streams (the flagship RA stream,
+   LD-B with every tool, IBC), every picture hash checked, with launch
+   counts that prove the decode ran through every kernel;
 5. one JSON line of per-kernel results, then the device line, last.
 """
 
@@ -34,6 +41,10 @@ TESTDATA = os.path.join(ROOT, "testdata")
 HD_STREAM = "ai_full_hd1080_qp37"
 SMALL_STREAMS = ("ai10_small208_qp32", "ai422_small208_qp32",
                  "ai_ccalf_cc208_qp32")
+RA_STREAM = "ra_full_bq416_qp37"
+INTER_STREAMS = (RA_STREAM, "ldb_full_small208_qp32", "sc_ibc_ldb_qp32")
+INTER_KERNELS = ("vtm_mc_tiles", "vtm_dmvr_search", "vtm_fir_blocks",
+                 "vtm_bdof_blend")
 # C entry point -> (source, TPU kernel it replaces)
 KERNEL_INFO = {
     "vtm_deblock_luma_ver": ("vtm_tpu_torch/csrc/deblock.cu",
@@ -48,6 +59,14 @@ KERNEL_INFO = {
                        "vtm_tpu/ops/alf_kernel.py:194"),
     "vtm_ccalf_filter": ("vtm_tpu_torch/csrc/alf.cu",
                          "vtm_tpu/ops/alf_kernel.py:290"),
+    "vtm_mc_tiles": ("vtm_tpu_torch/csrc/mc.cu",
+                     "vtm_tpu/ops/mc_kernel.py:36"),
+    "vtm_dmvr_search": ("vtm_tpu_torch/csrc/refine.cu",
+                        "vtm_tpu/ops/refine_kernel.py:70"),
+    "vtm_fir_blocks": ("vtm_tpu_torch/csrc/refine.cu",
+                       "vtm_tpu/ops/refine_kernel.py:145"),
+    "vtm_bdof_blend": ("vtm_tpu_torch/csrc/refine.cu",
+                       "vtm_tpu/ops/refine_kernel.py:182"),
 }
 
 
@@ -258,6 +277,114 @@ def random_case(torch, chk: KernelCheck, dev, seed: int = 7):
                   (True,) * 15, "10-bit 4:4:4 random", timed=False)
 
 
+def capture_inter_inputs(MK, RK, Decoder):
+    """Arguments of every MC, DMVR-search, final-pack and BDOF call of the
+    port's own CUDA decode of the flagship RA stream (device tensors; the
+    wrappers never write their inputs)."""
+    patches = {"mc": (MK, "mc_tiles_pair"), "search": (RK, "dmvr_search"),
+               "pack": (RK, "dmvr_final_pack"), "bdof": (RK, "bdof_blend_batch")}
+    reals = {k: getattr(m, n) for k, (m, n) in patches.items()}
+    got = {k: [] for k in patches}
+
+    def recorder(key):
+        def call(*args, **kw):
+            got[key].append((args, kw))
+            return reals[key](*args, **kw)
+        return call
+
+    for key, (mod, name) in patches.items():
+        setattr(mod, name, recorder(key))
+    try:
+        dec = Decoder(device="cuda")
+        dec.decode_stream(read_stream(RA_STREAM))
+    finally:
+        for key, (mod, name) in patches.items():
+            setattr(mod, name, reals[key])
+    if not dec.hash_results or not all(hr.ok for hr in dec.hash_results):
+        raise AssertionError(f"{RA_STREAM}: hash mismatch while recording")
+    empty = [k for k, v in got.items() if not v]
+    if empty:
+        raise AssertionError(f"{RA_STREAM}: no {empty} call recorded")
+    return got
+
+
+def check_inter_recorded(chk: KernelCheck, got, MK, RK):
+    """The four inter kernels against their plain versions on the recorded
+    inputs of the flagship decode (not timed: the batches are small)."""
+    label = RA_STREAM
+    for (largs, cargs, bd), _ in got["mc"]:
+        for args, lum in ((largs, True), (cargs, False)):
+            if args is None:
+                continue
+            taps, tile = MK.SHAPES[lum]
+            kw = dict(taps=taps, tile=tile, bd=bd)
+            chk.compare("vtm_mc_tiles",
+                        f"{label} {'luma' if lum else 'chroma'}, {args[1].shape[0]} tiles",
+                        lambda: MK.mc_tiles_cuda(*args, **kw),
+                        lambda: MK.mc_tiles_plain(*args, **kw))
+    for args, kw in got["search"]:
+        chk.compare("vtm_dmvr_search", f"{label}, {args[0].shape[0]} sub-PUs",
+                    lambda: RK.dmvr_search_cuda(*args, **kw),
+                    lambda: RK.dmvr_search_plain(*args, **kw))
+    for (l0, l1, cargs), kw in got["pack"]:
+        jobs = [(a, dict(w=kw["w"], h=kw["h"], taps=8, bd=kw["bd"])) for a in (l0, l1)]
+        jobs += [(a, dict(w=kw["wc"], h=kw["hc"], taps=4, bd=kw["bd"])) for a in cargs]
+        for a, fk in jobs:
+            chk.compare("vtm_fir_blocks",
+                        f"{label}, {a[0].shape[0]} {fk['w']}x{fk['h']} blocks",
+                        lambda: RK.fir_blocks_cuda(*a, **fk),
+                        lambda: RK.fir_blocks_plain(*a, **fk))
+    for args, kw in got["bdof"]:
+        chk.compare("vtm_bdof_blend", f"{label}, {args[0].shape[0]} sub-blocks",
+                    lambda: RK.bdof_blend_batch_cuda(*args, **kw),
+                    lambda: RK.bdof_blend_batch_plain(*args, **kw))
+
+
+def check_inter_1080p(chk: KernelCheck, MK, RK, dev, seed: int = 9):
+    """The four inter kernels on numpy-seeded batches the size of a 1080p
+    4:2:0 picture, timed: 129,600 luma 4x4 tiles over 4 reference planes
+    of 1920x1080, 2 x 129,600 chroma 2x2 tiles over 4 of 960x540, and
+    8,100 16x16 sub-PUs for the DMVR search, the luma FIR and BDOF."""
+    import numpy as np
+
+    from vtm_tpu_torch import testing as T
+    from vtm_tpu_torch.ops.filter_chain import to_device
+
+    rng = np.random.default_rng(seed)
+    bd = 8
+
+    def d(a):
+        return to_device(a, dev)
+
+    for lum, (h, w), n in ((True, (1080, 1920), 129_600),
+                           (False, (540, 960), 2 * 129_600)):
+        refs = np.stack([T.plane(rng, h, w, bd) for _ in range(4)])
+        drefs = list(d(refs))
+        args = [d(a) for a in T.mc_tiles_case(rng, refs, n, lum, bd, cover=True)]
+        taps, tile = MK.SHAPES[lum]
+        kw = dict(taps=taps, tile=tile, bd=bd)
+        chk.compare("vtm_mc_tiles",
+                    f"1080p seeded {'luma' if lum else 'chroma'}, {n} tiles",
+                    lambda: MK.mc_tiles_cuda(drefs, *args, **kw),
+                    lambda: MK.mc_tiles_plain(drefs, *args, **kw), timed=True)
+    label = "1080p seeded, 8100 16x16"
+    kw = dict(bd=bd, dx=16, dy=16)
+    args = [d(a) for a in T.dmvr_case(rng, 8100, 16, 16, bd)]
+    chk.compare("vtm_dmvr_search", f"{label} sub-PUs",
+                lambda: RK.dmvr_search_cuda(*args, **kw),
+                lambda: RK.dmvr_search_plain(*args, **kw), timed=True)
+    kw = dict(w=16, h=16, taps=8, bd=bd)
+    args = [d(a) for a in T.fir_blocks_case(rng, 8100, 8, 16, 16, bd)]
+    chk.compare("vtm_fir_blocks", f"{label} luma blocks",
+                lambda: RK.fir_blocks_cuda(*args, **kw),
+                lambda: RK.fir_blocks_plain(*args, **kw), timed=True)
+    kw = dict(bd=bd, w=16, h=16)
+    args = [d(a) for a in T.bdof_case(rng, 8100, 16, 16, bd)]
+    chk.compare("vtm_bdof_blend", f"{label} sub-blocks",
+                lambda: RK.bdof_blend_batch_cuda(*args, **kw),
+                lambda: RK.bdof_blend_batch_plain(*args, **kw), timed=True)
+
+
 def decode(torch, Decoder, name: str, chain_events: list) -> int:
     """Decode one stream on the card, check every picture hash, and print
     seconds per picture and the chain's summed device time."""
@@ -297,6 +424,8 @@ def main() -> int:
     from vtm_tpu_torch import kernels as KN
     from vtm_tpu_torch.decoder.declib import Decoder
     from vtm_tpu_torch.ops import filter_chain as FC
+    from vtm_tpu_torch.ops import mc_kernel as MK
+    from vtm_tpu_torch.ops import refine_kernel as RK
 
     # 2. build
     t0 = time.perf_counter()
@@ -321,6 +450,8 @@ def main() -> int:
     check_kernels(torch, chk, y, cb, cr, lut, dbv, dbh, sao, alf, bd, sx, sy,
                   fl, "1080p POC 0", timed=True)
     random_case(torch, chk, dev)
+    check_inter_recorded(chk, capture_inter_inputs(MK, RK, Decoder), MK, RK)
+    check_inter_1080p(chk, MK, RK, dev)
 
     # 4. the main path, with the launch counts of this run only
     chain_events = []
@@ -339,7 +470,7 @@ def main() -> int:
     KN.reset_launch_counts()
     try:
         per_stream = {}
-        for name in (HD_STREAM,) + SMALL_STREAMS:
+        for name in (HD_STREAM,) + SMALL_STREAMS + INTER_STREAMS:
             before = KN.launch_counts()
             n_pics = decode(torch, Decoder, name, chain_events)
             after = KN.launch_counts()
@@ -349,12 +480,16 @@ def main() -> int:
     counts = KN.launch_counts()
     hd, n_hd = per_stream[HD_STREAM]
     print(f"launches, {HD_STREAM}: {hd}", flush=True)
+    ra, _ = per_stream[RA_STREAM]
+    print(f"launches, {RA_STREAM}: {ra}", flush=True)
     print(f"launches, whole main path: {counts}", flush=True)
     if hd["vtm_deblock_luma_ver"] < 2 * n_hd:
         raise AssertionError("luma deblock ran fewer than twice per picture")
     if hd["vtm_sao_apply"] < 1 or hd["vtm_alf_filter"] < 1 \
             or hd["vtm_alf_classify"] < 1:
         raise AssertionError("SAO or ALF did not run on the 1080p stream")
+    if any(ra[k] < 1 for k in INTER_KERNELS):
+        raise AssertionError(f"an inter kernel did not run on {RA_STREAM}")
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")

@@ -5,7 +5,8 @@
 (b) golden all-intra streams decode hash-exact through the port;
 (c) the 1080p stream too (slow);
 (d) the port decodes with jax unimportable and never loads it;
-(e) a missing CUDA device and an inter stream raise instead of giving way.
+(e) a missing CUDA device raises instead of giving way.
+(Inter and IBC decode: tests/test_torch_inter_decode.py.)
 """
 
 import os
@@ -131,13 +132,6 @@ def test_cuda_requested_without_cuda_raises(monkeypatch):
         Decoder(device="cuda")
     with pytest.raises(RuntimeError):
         app.main(["-b", os.path.join(TD, "ai_min_tiny64_qp27.bit")])
-
-
-def test_inter_stream_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Decoder(device="cpu").decode_stream(read("ld_min_tiny64_qp32"))
-    with pytest.raises(NotImplementedError):
-        Decoder(device="cpu", strict=False).decode_stream(read("ld_min_tiny64_qp32"))
 
 
 @pytest.mark.cuda

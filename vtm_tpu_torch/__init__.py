@@ -1,11 +1,12 @@
 """vtm_tpu_torch: the VVC decoder of `vtm_tpu` on PyTorch and CUDA.
 
-All-intra decode runs end to end: parsing, CABAC, intra prediction,
-inverse transform and LMCS forward mapping come unchanged from `vtm_tpu`'s
-host modules (numpy); the in-loop filter chain (LMCS inverse, deblocking,
-SAO, ALF / CC-ALF) runs on a torch device, through hand-written CUDA kernels
-(`csrc/`) on a GPU and through their plain torch versions on the CPU.
-Inter and IBC prediction are not ported yet.
+All-intra, inter and IBC decode run end to end: parsing, CABAC, MV
+derivation, intra, affine and IBC prediction, inverse transform and LMCS
+forward mapping come unchanged from `vtm_tpu`'s host modules (numpy); the
+slice's translational MC, DMVR, BDOF and the in-loop filter chain (LMCS
+inverse, deblocking, SAO, ALF / CC-ALF) run on a torch device, through
+hand-written CUDA kernels (`csrc/`) on a GPU and through their plain torch
+versions on the CPU.
 
 This package imports torch and numpy, never jax.
 """

@@ -2,7 +2,8 @@
 
 Fork of vtm_tpu/decoder/dec_slice.py:decompress_slice (DecoderLib/DecSlice.cpp
 decompressSlice:73).  It differs from the reference only in the CU
-reconstructor it builds: the port's, whose finish_slice has no MC batch.
+reconstructor it builds: the port's, on the decoder's torch device, whose
+finish_slice runs the slice's MC, DMVR and BDOF through the port's kernels.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ def decompress_slice(dec, sps, pps, ph, sh, r) -> None:
         n_ctu = pps.pic_width_in_ctu(sps.ctu_size) * pps.pic_height_in_ctu(sps.ctu_size)
         slice_idx_of_ctu = np.full(n_ctu, -1, dtype=np.int32)
         pic.dcs = D.DecCodingStructure(sps, pps, ph, sh, slice_idx_of_ctu)
-        pic.recon = CuReconstructor(pic.dcs, pic.planes)
+        pic.recon = CuReconstructor(pic.dcs, pic.planes, dec.device)
         pic.sao_params = [SaoParams() for _ in range(n_ctu)]
         pic.alf_ctb_flag = [np.zeros(n_ctu, dtype=np.uint8) for _ in range(3)]
         pic.alf_ctb_alt = [None, np.zeros(n_ctu, dtype=np.uint8), np.zeros(n_ctu, dtype=np.uint8)]

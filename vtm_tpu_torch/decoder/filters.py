@@ -3,14 +3,16 @@
 Counterpart of vtm_tpu/decoder/filters.py.  The stage parameters come from
 vtm_tpu's unchanged host functions (build_pic_maps, build_sao_maps) and the
 port's build_alf_tables; the chain runs on the decoder's torch device and
-its packed output stays there until the picture's first host use.
+its packed output stays there until the picture's first host use.  After
+the chain, DMVR-refined MVs go into the motion field for the TMVP of later
+pictures, as in the reference.
 
-Not carried over: the filter-capture hook and the DMVR motion-field update,
-which only inter decode needs.
+Not carried over: the filter-capture hook.
 """
 
 from __future__ import annotations
 
+from vtm_tpu.decoder import motion as M
 from vtm_tpu.ops import deblock as DB
 from vtm_tpu.ops import sao as SAO
 from vtm_tpu_torch.ops import alf as ALF
@@ -40,3 +42,27 @@ def apply_loop_filters(dec, pic) -> None:
     pic._pending_packed = FC.run_filter_chain(
         pic.planes, lmcs_lut, dmaps, sao_maps, alf_tables,
         dcs.sps.bit_depth, fmt.scale_x, fmt.scale_y, dec.device)
+    if hasattr(dcs, "mf_mv"):
+        store_refined_motion(dcs)
+
+
+def store_refined_motion(dcs) -> None:
+    """DMVR-refined MVs into the 4x4 motion field for TMVP
+    (DecLib::executeLoopFilters -> setRefinedMotionField, DecLib.cpp:629)."""
+    for cu in dcs.cus:
+        mvd_info = getattr(cu, "_dmvr_mvd", None)
+        if mvd_info is None:
+            continue
+        mvd_sub, sdx, sdy = mvd_info
+        b = cu.blocks[0]
+        for (sy, sx), mvd in mvd_sub.items():
+            y0 = (b.y + sy * sdy) >> 2
+            x0 = (b.x + sx * sdx) >> 2
+            ys = slice(y0, y0 + (sdy >> 2))
+            xs = slice(x0, x0 + (sdx >> 2))
+            mv0 = M.clip_storage((cu.mv[0][0] + mvd[0], cu.mv[0][1] + mvd[1]))
+            mv1 = M.clip_storage((cu.mv[1][0] - mvd[0], cu.mv[1][1] - mvd[1]))
+            dcs.mf_mv[ys, xs, 0, 0] = mv0[0]
+            dcs.mf_mv[ys, xs, 0, 1] = mv0[1]
+            dcs.mf_mv[ys, xs, 1, 0] = mv1[0]
+            dcs.mf_mv[ys, xs, 1, 1] = mv1[1]

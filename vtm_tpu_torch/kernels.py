@@ -1,10 +1,11 @@
 """Build and bind the port's CUDA kernels (`vtm_tpu_torch/csrc/*.cu`).
 
-The sources are compiled with nvcc for Hopper (`sm_90a`) into one shared
-library with a plain C interface and loaded with ctypes.  The build happens
-at first use, into `vtm_tpu_torch/_build/`, and again whenever a source is
-newer than the library.  Nothing here runs at import time, so the module
-imports on a machine without nvcc or a GPU.
+The sources are compiled with nvcc for Hopper (`sm_90a`), one nvcc process
+per source, all at once, and linked into one shared library with a plain C
+interface, loaded with ctypes.  The build happens at first use, into
+`vtm_tpu_torch/_build/`, and again whenever a source is newer than the
+library.  Nothing here runs at import time, so the module imports on a
+machine without nvcc or a GPU.
 
 Every launch goes through `launch()`: it passes the caller's pointers and
 the current CUDA stream, raises on a non-zero `cudaError_t` from the entry
@@ -26,9 +27,9 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-LIB_PATH = os.path.join(BUILD_DIR, "libvtm_filters.so")
+LIB_PATH = os.path.join(BUILD_DIR, "libvtm_kernels.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point -> argument types (pointers and the stream as c_void_p)
@@ -43,6 +44,11 @@ _SIGNATURES = {
     "vtm_alf_filter": (_P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P),
     "vtm_ccalf_filter": (_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                          _P),
+    "vtm_mc_tiles": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                     _I, _P, _P),
+    "vtm_dmvr_search": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "vtm_fir_blocks": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "vtm_bdof_blend": (_P, _P, _I, _I, _I, _I, _P, _P),
 }
 KERNELS = tuple(_SIGNATURES)
 
@@ -72,15 +78,36 @@ def build(force: bool = False, ptxas_verbose: bool = False) -> str:
     if not os.path.exists(nvcc):
         raise RuntimeError("nvcc not found (needed to build the CUDA kernels)")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if ptxas_verbose else ()),
-           "-o", tmp, *[s for s in sources() if s.endswith(".cu")]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}")
-    os.replace(tmp, LIB_PATH)
-    return res.stderr
+    tag = f"{os.getpid()}.tmp"
+    verbose = ("-Xptxas", "-v") if ptxas_verbose else ()
+    jobs = []
+    for src in (s for s in sources() if s.endswith(".cu")):
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, *verbose, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    diag, failed = [], []
+    for cmd, _, proc in jobs:
+        _, err = proc.communicate()
+        diag.append(err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = f"{LIB_PATH}.{tag}"
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return "".join(diag)
 
 
 def library() -> ctypes.CDLL:

@@ -7,7 +7,31 @@ semantics."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def pick(t: torch.Tensor, cuda_fn, plain_fn):
+    """The kernel's wrapper for a CUDA tensor, the plain version for a CPU
+    tensor; any other device raises."""
+    if t.is_cuda:
+        return cuda_fn
+    if t.device.type == "cpu":
+        return plain_fn
+    raise ValueError(f"no kernel or plain version for a tensor on {t.device}")
+
+
+def upload(arrays, device: torch.device, dtype=np.int32) -> list[torch.Tensor]:
+    """numpy arrays as contiguous tensors on `device`, moved in one copy:
+    views of one packed buffer, each with its array's shape."""
+    flat = [np.asarray(a, dtype=dtype).reshape(-1) for a in arrays]
+    buf = torch.from_numpy(np.concatenate(flat) if flat else np.zeros(0, dtype))
+    buf = buf.to(device)
+    out, pos = [], 0
+    for a, f in zip(arrays, flat):
+        out.append(buf[pos:pos + f.size].view(np.shape(a)))
+        pos += f.size
+    return out
 
 
 def edge_pad(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -36,6 +60,12 @@ def clip3(lo, hi, v: torch.Tensor) -> torch.Tensor:
 def mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """int32 product that wraps on overflow, as XLA's does."""
     p = (a.to(torch.int64) * b.to(torch.int64)) & 0xFFFFFFFF
+    return (p - ((p >> 31) << 32)).to(torch.int32)
+
+
+def shl32(a: torch.Tensor, k: int) -> torch.Tensor:
+    """int32 left shift that wraps, as XLA's does (also for negatives)."""
+    p = (a.to(torch.int64) << k) & 0xFFFFFFFF
     return (p - ((p >> 31) << 32)).to(torch.int32)
 
 

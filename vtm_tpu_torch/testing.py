@@ -1,4 +1,4 @@
-"""Numpy-seeded inputs for the in-loop filter kernels.
+"""Numpy-seeded inputs for the port's kernels.
 
 Shared by the kernel tests (the jax reference against the plain torch
 versions) and chip_smoke.py (the CUDA kernels against the plain versions).
@@ -8,13 +8,15 @@ Planes are blocky (8x8 steps plus small noise), so the deblocking
 decisions, SAO edge classes and ALF classes all take several values.
 Active deblocking edges are 16 samples apart (8 in subsampled chroma), as
 the max-filter-length rules keep real edges: no sample is written by two
-edges.
+edges.  The MC, DMVR, FIR and BDOF cases use VTM's own filter tables
+(vtm_tpu.ops.mc) and put windows across every plane edge.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from vtm_tpu.ops import mc as MC
 from vtm_tpu_torch.ops import alf_kernel as AK
 
 # (sx, sy) of each chroma format
@@ -113,3 +115,107 @@ def alf_tables(rng, h: int, w: int, fmt: str, bit_depth: int, ctu: int):
             cmap(6, 0, maxv), c_orows, c_near, cmap(7, -32, 32),
             cmap(7, -32, 32), cc_orows, cc_skip)
     return args
+
+
+def mc_tiles_case(rng, refs: np.ndarray, n: int, lum: bool, bd: int,
+                  cover: bool = False) -> tuple:
+    """(r_idx, x0, y0, cH, cV, fy_nz, rnd) of n MC tiles over the planes
+    refs [R, H, W], uni and bi, each phase zero about a quarter of the time.
+
+    Tiles sit anywhere on the plane (cover=False) or cover it in raster
+    order, again and again (cover=True: n = k times the plane's tile
+    count covers it k times); each is moved by an MV wide enough that
+    windows run off every edge of the plane."""
+    R, H, W = refs.shape
+    taps, tile = (8, 4) if lum else (4, 2)
+    table = MC._LUMA if lum else MC._CHROMA
+    if cover:
+        by, bx = np.divmod(np.arange(n) % ((H // tile) * (W // tile)), W // tile)
+        bx, by = bx * tile, by * tile
+    else:
+        bx, by = rng.integers(0, W, n), rng.integers(0, H, n)
+    reach = 2 * (tile + taps)
+    x0 = bx + rng.integers(-reach, reach + 1, n) - (taps // 2 - 1)
+    y0 = by + rng.integers(-reach, reach + 1, n) - (taps // 2 - 1)
+    fx = np.where(rng.random(n) < 0.25, 0, rng.integers(0, len(table), n))
+    fy = np.where(rng.random(n) < 0.25, 0, rng.integers(0, len(table), n))
+    ints = (rng.integers(0, R, n), x0, y0, table[fx], table[fy])
+    return tuple(a.astype(np.int32) for a in ints) + (fy != 0, rng.random(n) < 0.5)
+
+
+def _dmvr_crafted(dx: int, dy: int) -> list[tuple]:
+    """Search windows whose costs are known (integer phases, so the grid is
+    the window itself): the biased centre tying the minimum, a five-way tie
+    away from the centre, and an early termination."""
+    ph, pw = dy + 7, dx + 7
+    zero = np.zeros((ph, pw), np.int32)
+    cases = []
+    for odd in (75, 50):
+        # g0 rows y: f(y); g1 = 0.  cost(dmx, dmy) = dx * sum over the even
+        # rows r of f(2 + dmy + r): the dmy = 0 row costs 100 per sample,
+        # dmy = -1 costs `odd` (75: exactly the centre's 3/4 bias, a tie;
+        # 50: below it, five offsets tie), the others far more.
+        f = np.where(np.arange(dy + 4) % 2 == 0, 100, odd)
+        f[[0, dy + 1, dy + 2, dy + 3]] = 1000
+        pre0 = zero.copy()
+        pre0[1:1 + dy + 4, 1:1 + dx + 4] = f[:, None]
+        cases.append((pre0, zero.copy()))
+    flat = np.full((ph, pw), 100, np.int32)
+    cases.append((flat, flat.copy()))
+    return [(p0, p1, 0, 0, 0, 0) for p0, p1 in cases]
+
+
+def dmvr_case(rng, n: int, dx: int, dy: int, bd: int) -> tuple:
+    """(pre0, pre1, f0x, f0y, f1x, f1y) of n DMVR sub-PUs: the three crafted
+    ones of _dmvr_crafted, then windows cut from one blocky plane at small
+    relative shifts (so the best offset varies) with random phases."""
+    ph, pw = dy + 7, dx + 7
+    crafted = _dmvr_crafted(dx, dy)
+    m = n - len(crafted)
+    base = plane(rng, ph + 8, (pw + 8) * m, bd).reshape(ph + 8, m, pw + 8)
+    base = base.transpose(1, 0, 2)
+    s0 = rng.integers(0, 5, (m, 2))
+    s1 = rng.integers(0, 5, (m, 2))
+    idx = np.arange(m)[:, None, None]
+    rows, cols = np.arange(ph)[None, :, None], np.arange(pw)[None, None, :]
+    pre0 = base[idx, s0[:, :1, None] + 2 + rows, s0[:, 1:, None] + 2 + cols]
+    pre1 = base[idx, s1[:, :1, None] + 2 + rows, s1[:, 1:, None] + 2 + cols]
+    fr = [np.where(rng.random(m) < 0.25, 0, rng.integers(0, 16, m)) for _ in range(4)]
+    out = [np.concatenate([np.stack([c[k] for c in crafted]), a])
+           for k, a in enumerate((pre0, pre1))]
+    out += [np.concatenate([[c[2 + k] for c in crafted], f]) for k, f in enumerate(fr)]
+    return tuple(a.astype(np.int32) for a in out)
+
+
+def fir_blocks_case(rng, n: int, taps: int, w: int, h: int, bd: int) -> tuple:
+    """(bufs, x0, y0, cfh, cfv) of n blocks with private buffers the size of
+    DMVR's ((h + taps - 1) x (w + taps - 1)); origins reach past every
+    buffer edge."""
+    table = MC._LUMA if taps == 8 else MC._CHROMA
+    bufs = rng.integers(0, 1 << bd, (n, h + taps - 1, w + taps - 1))
+    half = taps // 2 - 1
+    x0 = rng.integers(-2, 2 * half + 3, n)
+    y0 = rng.integers(-2, 2 * half + 3, n)
+    cfh = table[rng.integers(0, len(table), n)]
+    cfv = table[rng.integers(0, len(table), n)]
+    return tuple(a.astype(np.int32) for a in (bufs, x0, y0, cfh, cfv))
+
+
+def bdof_case(rng, n: int, w: int, h: int, bd: int) -> tuple:
+    """(p0e, p1e) extended predictions [n, h+2, w+2] in the 14-bit domain:
+    half the blocks are smooth ramps seen at two small shifts (moderate
+    flow), half random over the whole domain (the largest gradients)."""
+    lo, hi = -(1 << 13), (1 << 14) + (1 << 13)
+    yy, xx = np.mgrid[0:h + 2, 0:w + 2]
+    m = n // 2
+    a = rng.integers(-600, 601, (m, 1, 1))
+    b = rng.integers(-600, 601, (m, 1, 1))
+    c = rng.integers(0, 1 << 14, (m, 1, 1))
+    d = rng.integers(-2, 3, (2, m, 1, 1))
+    smooth0 = a * xx + b * yy + c
+    smooth1 = a * (xx + d[0]) + b * (yy + d[1]) + c
+    noise = rng.integers(-64, 65, (2, m, h + 2, w + 2))
+    wild = rng.integers(lo, hi, (2, n - m, h + 2, w + 2))
+    p0 = np.concatenate([np.clip(smooth0 + noise[0], lo, hi), wild[0]])
+    p1 = np.concatenate([np.clip(smooth1 + noise[1], lo, hi), wild[1]])
+    return p0.astype(np.int32), p1.astype(np.int32)
