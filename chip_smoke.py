@@ -20,18 +20,33 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
      (416x240 RA, every inter tool on), and on numpy-seeded batches the
      size of a 1080p 4:2:0 picture;
    kernel and plain times from CUDA events, on the 1080p inputs;
-4. the main path through vtm_tpu_torch.decoder.declib.Decoder(device=
-   "cuda"): the 1080p all-intra stream, three small all-intra streams
+   - the SATD kernel on numpy-seeded differences of every tiling (8- and
+     10-bit extremes), 1920x1080 samples per call;
+   - the three RMD kernels on every block-size class of a 1920x1080 picture
+     mirror-tiled from testdata/bq416_416x240_420_8.yuv (MIP on, 888,628
+     positions), and on a numpy-seeded 10-bit 256x192 picture;
+4. the decode main path through vtm_tpu_torch.decoder.declib.Decoder(
+   device="cuda"): the 1080p all-intra stream, three small all-intra streams
    (10-bit, 4:2:2, CC-ALF) and three inter streams (the flagship RA stream,
-   LD-B with every tool, IBC), every picture hash checked, with launch
-   counts that prove the decode ran through every kernel;
-5. one JSON line of per-kernel results, then the device line, last.
+   LD-B with every tool, IBC), every picture hash checked;
+5. the encode main path through vtm_tpu_torch.encoder.enc_lib.IntraEncoder(
+   device="cuda"): three 208x120 encodes (CC-ALF, MIP and SAO engaged),
+   byte-identical to the same encodes with device="cpu", and one 1920x1080
+   picture at QP 37 (bench.py's north-star configuration), each stream
+   decoded hash-exact by the port's decoder;
+   launch counts, zeroed before each main path and read after it, prove
+   that the two paths ran through every kernel (the standalone SATD entry
+   point excepted: its code runs inside the RMD kernels); the encodes' own
+   counts, without the decodes that check their streams, prove that the
+   encoder's RMD, deblocking, SAO and ALF ran through the kernels;
+6. one JSON line of per-kernel results, then the device line, last.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -67,7 +82,33 @@ KERNEL_INFO = {
                        "vtm_tpu/ops/refine_kernel.py:145"),
     "vtm_bdof_blend": ("vtm_tpu_torch/csrc/refine.cu",
                        "vtm_tpu/ops/refine_kernel.py:182"),
+    "vtm_satd_batch": ("vtm_tpu_torch/csrc/rdcost.cu",
+                       "vtm_tpu/ops/rdcost.py:127"),
+    "vtm_rmd_angular": ("vtm_tpu_torch/csrc/rmd.cu",
+                        "vtm_tpu/encoder/rmd_tpu.py:516"),
+    "vtm_rmd_mip": ("vtm_tpu_torch/csrc/rmd.cu",
+                    "vtm_tpu/encoder/rmd_tpu.py:374"),
+    "vtm_rmd_reduce": ("vtm_tpu_torch/csrc/rmd.cu",
+                       "vtm_tpu/encoder/rmd_tpu.py:579"),
 }
+# the standalone SATD entry point: its device function runs inside the RMD
+# kernels, so the main path never launches it by name
+NOT_ON_MAIN_PATH = {"vtm_satd_batch": "its code runs fused inside vtm_rmd_angular "
+                                      "and vtm_rmd_mip (csrc/satd.cuh)"}
+SATD_SHAPES = ((4, 4), (8, 8), (16, 16), (8, 16), (16, 8), (4, 8), (8, 4),
+               (4, 16), (16, 4), (32, 32), (64, 64), (2, 2), (3, 5))
+# the encodes of phase 5: CC-ALF engages in the first, MIP in the second,
+# SAO in the third (the SAO search turns SAO off in every CTU of the first)
+ENC_CASES = (("cc208_208x120_420_8", dict(qp=37, sao=True, alf=True, ccalf=True)),
+             ("small208_208x120_420_8", dict(qp=32, mip=True)),
+             ("screen208_208x120_420_8", dict(qp=37, sao=True)))
+ENC_KERNELS = ("vtm_rmd_angular", "vtm_rmd_mip", "vtm_rmd_reduce",
+               "vtm_deblock_luma_ver", "vtm_deblock_chroma_ver", "vtm_sao_apply",
+               "vtm_alf_classify", "vtm_alf_filter")
+# decode kernels the encoder does not launch: only the decodes of its streams
+NOT_IN_ENCODER = {"vtm_ccalf_filter": "the encoder applies CC-ALF on the host "
+                                      "(vtm_tpu.encoder.alf_search.derive_ccalf, "
+                                      "taken unchanged)"}
 
 
 class _Captured(Exception):
@@ -82,8 +123,9 @@ def card_line() -> str:
 
 
 def cuda_ms(torch, fn, iters: int = 10) -> float:
-    """Mean device time of fn() in ms (CUDA events, after a warm-up)."""
-    for _ in range(2):
+    """Mean device time of fn() in ms (CUDA events, after up to two
+    warm-up calls)."""
+    for _ in range(min(2, iters)):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -141,7 +183,7 @@ class KernelCheck:
                      for k in KERNEL_INFO}
 
     def compare(self, kernel: str, label: str, cuda_fn, plain_fn,
-                timed: bool = False):
+                timed: bool = False, iters: int = 10):
         torch = self.torch
         got = cuda_fn()
         want = plain_fn()
@@ -151,7 +193,8 @@ class KernelCheck:
         row["max_abs_err"] = max(row["max_abs_err"], err)
         msg = f"{kernel} [{label}]: max |kernel - plain| = {err}"
         if timed:
-            ms, pms = cuda_ms(torch, cuda_fn), cuda_ms(torch, plain_fn)
+            ms = cuda_ms(torch, cuda_fn, iters)
+            pms = cuda_ms(torch, plain_fn, iters)
             row["ms"] += ms
             row["plain_ms"] += pms
             msg += f", kernel {ms:.4f} ms, plain {pms:.4f} ms"
@@ -385,6 +428,177 @@ def check_inter_1080p(chk: KernelCheck, MK, RK, dev, seed: int = 9):
                 lambda: RK.bdof_blend_batch_plain(*args, **kw), timed=True)
 
 
+def check_satd(chk: KernelCheck, dev, seed: int = 11):
+    """vtm_satd_batch against its plain version on numpy-seeded differences
+    of every tiling, 8- and 10-bit (with the all-max, all-min and
+    checkerboard extremes), 1920x1080 samples per call, timed at 8 bits;
+    and on tiles where float32 and float64 normalisation differ."""
+    import numpy as np
+
+    from vtm_tpu_torch import testing as T
+    from vtm_tpu_torch.ops import rdcost as RC
+    from vtm_tpu_torch.ops.filter_chain import to_device
+
+    rng = np.random.default_rng(seed)
+    for h, w in SATD_SHAPES:
+        n = 1920 * 1080 // (h * w)
+        for bd in (8, 10):
+            d = to_device(T.satd_diffs(rng, n, h, w, bd), dev)
+            chk.compare("vtm_satd_batch", f"{h}x{w} {bd}-bit, {n} blocks",
+                        lambda: RC.satd_batch_cuda(d, h, w),
+                        lambda: RC.satd_batch_plain(d, h, w), timed=bd == 8)
+    for h, w in ((8, 16), (16, 8), (4, 8), (8, 4)):
+        # tiles on which float32 and float64 normalisation differ
+        d = to_device(T.satd_f32_cases(rng, h, w, 10), dev)
+        chk.compare("vtm_satd_batch", f"{h}x{w}, {d.shape[0]} float32-edge tiles",
+                    lambda: RC.satd_batch_cuda(d, h, w),
+                    lambda: RC.satd_batch_plain(d, h, w))
+
+
+def check_rmd(torch, chk: KernelCheck, src, bd: int, label: str, timed: bool):
+    """The three RMD kernels against their plain versions on every class of
+    the source picture `src` (MIP on): the angular and the MIP columns, and
+    the reduction of the plain table."""
+    import numpy as np
+
+    from vtm_tpu_torch.encoder import rmd as RMD
+    from vtm_tpu_torch.encoder.enc_lib import EncoderConfig
+    from vtm_tpu_torch.ops import upload
+
+    dev = torch.device("cuda")
+    h_pic, w_pic = src.shape
+    cfg = EncoderConfig(width=w_pic, height=h_pic, bit_depth=bd, mip=True)
+    srcpad = np.pad(src.astype(np.int32), ((1, RMD.PAD_R), (1, RMD.PAD_R)),
+                    mode="edge")
+    total = 0
+    for w, h in RMD.intra_class_list(cfg):
+        sx, sy = RMD._class_strides(w, h)
+        gx, gy = np.meshgrid(np.arange(0, w_pic - w + 1, sx),
+                             np.arange(0, h_pic - h + 1, sy))
+        sp, xs, ys = upload([srcpad, gx.ravel(), gy.ravel()], dev)
+        c = RMD.class_consts(w, h, bd, True, dev)
+        P = xs.shape[0]
+        total += P
+        out = torch.empty((P, c.ncols), dtype=torch.int32, device=dev)
+        tag = f"{label} {w}x{h}, {P} positions"
+        kw = dict(timed=timed, iters=2)
+        ang = chk.compare(
+            "vtm_rmd_angular", tag,
+            lambda: RMD.angular_costs_cuda(sp, xs, ys, c, out)[:, :RMD.N_ANG],
+            lambda: RMD.angular_costs_plain(sp, xs, ys, c, w, h, bd), **kw)
+        mip = chk.compare(
+            "vtm_rmd_mip", tag,
+            lambda: RMD.mip_costs_cuda(sp, xs, ys, c, out)[:, RMD.N_ANG:],
+            lambda: RMD.mip_costs_plain(sp, xs, ys, c, w, h, bd), **kw)
+        full = torch.cat([ang, mip], dim=1)
+        chk.compare("vtm_rmd_reduce", tag,
+                    lambda: RMD.reduce_cuda(full, c.n_mip),
+                    lambda: RMD.reduce_plain(full, c.n_mip), **kw)
+    print(f"RMD [{label}]: {total} positions in all classes", flush=True)
+
+
+def encode_small(torch, KN, Decoder, IntraEncoder, name: str, kw: dict) -> dict:
+    """One 208x120 picture on the card and on the CPU: identical bytes, and
+    the card's stream decodes hash-exact (on the card) to the encoder's
+    reconstruction.  Returns the launches of the card's encode alone."""
+    from vtm_tpu_torch import testing as T
+    from vtm_tpu_torch.encoder.enc_lib import EncoderConfig
+
+    frames = [T.read_source(name, 208, 120)]
+    before = KN.launch_counts()
+    t0 = time.perf_counter()
+    enc = IntraEncoder(EncoderConfig(width=208, height=120, **kw), device="cuda")
+    bits = enc.encode(frames)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    after = KN.launch_counts()
+    cpu_bits = IntraEncoder(EncoderConfig(width=208, height=120, **kw),
+                            device="cpu").encode(frames)
+    if bits != cpu_bits:
+        raise AssertionError(f"encode {name}: cuda and cpu streams differ "
+                             f"({len(bits)} vs {len(cpu_bits)} bytes)")
+    check_own_decode(Decoder, name, bits, enc.last_recon)
+    done = KN.launch_counts()
+    enc_l = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    dec_l = {k: done[k] - after[k] for k in after if done[k] > after[k]}
+    print(f"encode {name} {kw}: {len(bits)} bytes, identical on cuda and cpu, "
+          f"decoded hash-exact; {dt:.4f} s on cuda; launches: encode {enc_l}, "
+          f"decode of its stream {dec_l}", flush=True)
+    return {k: after[k] - before[k] for k in after}
+
+
+def check_own_decode(Decoder, name: str, bits: bytes, recon) -> None:
+    import numpy as np
+
+    dec = Decoder(device="cuda")
+    pics = dec.decode_stream(bits)
+    if len(pics) != 1 or len(dec.hash_results) != 1 or not dec.hash_results[0].ok:
+        raise AssertionError(f"encode {name}: the port's decoder does not "
+                             "verify the stream's hash")
+    if not all(np.array_equal(p, r) for p, r in zip(pics[0].planes, recon)):
+        raise AssertionError(f"encode {name}: decoded picture != encoder recon")
+
+
+def encode_hd(torch, KN, Decoder, IntraEncoder):
+    """One 1920x1080 picture (mirror-tiled bq416) at QP 37 with bench.py's
+    configuration on the card; decoded hash-exact by the port.  Prints
+    s/picture and its split: the host's wait for FrameRMD's results, the
+    deblocking stage, the rest (host RD search, CABAC); and FrameRMD's span
+    on the device timeline (CUDA events around its construction: uploads,
+    kernels and the gaps while the host prepares the next class).  Returns
+    the launches of the encode alone."""
+    from vtm_tpu_torch import testing as T
+    from vtm_tpu_torch.encoder import rmd as RMD
+    from vtm_tpu_torch.encoder.enc_lib import EncoderConfig
+    from vtm_tpu_torch.ops import deblock as DBP
+
+    spans = {"rmd_events": [], "rmd_wait": 0.0, "deblock": 0.0}
+    real_rmd, real_db = RMD.FrameRMD, DBP.deblock_picture
+
+    class TimedFrameRMD(real_rmd):
+        def __init__(self, *args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            super().__init__(*args, **kw)
+            end.record()
+            spans["rmd_events"].append((start, end))
+
+        def _force_reduced(self):
+            t0 = time.perf_counter()
+            out = super()._force_reduced()
+            spans["rmd_wait"] += time.perf_counter() - t0
+            return out
+
+    def timed_deblock(*args, **kw):
+        t0 = time.perf_counter()
+        real_db(*args, **kw)
+        spans["deblock"] += time.perf_counter() - t0
+
+    frames = [T.hd_source()]
+    before = KN.launch_counts()
+    RMD.FrameRMD, DBP.deblock_picture = TimedFrameRMD, timed_deblock
+    try:
+        t0 = time.perf_counter()
+        enc = IntraEncoder(EncoderConfig(width=1920, height=1080, qp=37),
+                           device="cuda")
+        bits = enc.encode(frames)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        RMD.FrameRMD, DBP.deblock_picture = real_rmd, real_db
+    after = KN.launch_counts()
+    check_own_decode(Decoder, "hd_source 1920x1080", bits, enc.last_recon)
+    rmd_ms = sum(s.elapsed_time(e) for s, e in spans["rmd_events"])
+    rest = dt - spans["rmd_wait"] - spans["deblock"]
+    print(f"encode 1920x1080 (bq416 mirror-tiled) QP 37: {len(bits)} bytes, "
+          f"decoded hash-exact; {dt:.4f} s/picture = FrameRMD wait "
+          f"{spans['rmd_wait']:.4f} s + deblock {spans['deblock']:.4f} s + host "
+          f"RD and CABAC {rest:.4f} s; FrameRMD span on the device timeline "
+          f"{rmd_ms:.4f} ms (CUDA events: uploads, kernels, host gaps)", flush=True)
+    return {k: after[k] - before[k] for k in after}
+
+
 def decode(torch, Decoder, name: str, chain_events: list) -> int:
     """Decode one stream on the card, check every picture hash, and print
     seconds per picture and the chain's summed device time."""
@@ -421,8 +635,12 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
     sys.path.insert(0, ROOT)
+    import numpy as np
+
     from vtm_tpu_torch import kernels as KN
+    from vtm_tpu_torch import testing as T
     from vtm_tpu_torch.decoder.declib import Decoder
+    from vtm_tpu_torch.encoder.enc_lib import IntraEncoder
     from vtm_tpu_torch.ops import filter_chain as FC
     from vtm_tpu_torch.ops import mc_kernel as MK
     from vtm_tpu_torch.ops import refine_kernel as RK
@@ -434,7 +652,10 @@ def main() -> int:
     print(f"built {os.path.relpath(KN.LIB_PATH, ROOT)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for line in diag.splitlines():
-        if "registers" in line or "spill" in line:
+        entry = re.search(r"entry function '_Z(\d+)(\w+)'", line)
+        if entry:
+            print("  ptxas:", entry.group(2)[:int(entry.group(1))])
+        elif "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
     # 3. kernels against their plain versions
@@ -452,8 +673,12 @@ def main() -> int:
     random_case(torch, chk, dev)
     check_inter_recorded(chk, capture_inter_inputs(MK, RK, Decoder), MK, RK)
     check_inter_1080p(chk, MK, RK, dev)
+    check_satd(chk, dev)
+    check_rmd(torch, chk, T.hd_source()[0], 8, "1080p bq416 mirror-tiled", timed=True)
+    check_rmd(torch, chk, T.rmd_source(np.random.default_rng(13), 192, 256, 10),
+              10, "10-bit 256x192 seeded", timed=False)
 
-    # 4. the main path, with the launch counts of this run only
+    # 4. the decode main path, with the launch counts of this run only
     chain_events = []
     real_chain = FC.run_filter_chain
 
@@ -477,12 +702,12 @@ def main() -> int:
             per_stream[name] = ({k: after[k] - before[k] for k in after}, n_pics)
     finally:
         FC.run_filter_chain = real_chain
-    counts = KN.launch_counts()
+    dec_counts = KN.launch_counts()
     hd, n_hd = per_stream[HD_STREAM]
     print(f"launches, {HD_STREAM}: {hd}", flush=True)
     ra, _ = per_stream[RA_STREAM]
     print(f"launches, {RA_STREAM}: {ra}", flush=True)
-    print(f"launches, whole main path: {counts}", flush=True)
+    print(f"launches, decode main path: {dec_counts}", flush=True)
     if hd["vtm_deblock_luma_ver"] < 2 * n_hd:
         raise AssertionError("luma deblock ran fewer than twice per picture")
     if hd["vtm_sao_apply"] < 1 or hd["vtm_alf_filter"] < 1 \
@@ -490,11 +715,30 @@ def main() -> int:
         raise AssertionError("SAO or ALF did not run on the 1080p stream")
     if any(ra[k] < 1 for k in INTER_KERNELS):
         raise AssertionError(f"an inter kernel did not run on {RA_STREAM}")
-    missing = [k for k, v in counts.items() if v == 0]
+
+    # 5. the encode main path, with the launch counts of this run only
+    KN.reset_launch_counts()
+    encodes = [encode_small(torch, KN, Decoder, IntraEncoder, name, kw)
+               for name, kw in ENC_CASES]
+    encodes.append(encode_hd(torch, KN, Decoder, IntraEncoder))
+    enc_counts = KN.launch_counts()
+    enc_only = {k: sum(c[k] for c in encodes) for k in enc_counts}
+    print(f"launches, the encodes alone: {enc_only}", flush=True)
+    print(f"launches, encode main path (the encodes and the decodes of their "
+          f"streams): {enc_counts}", flush=True)
+    idle = [k for k in ENC_KERNELS if enc_only[k] == 0]
+    if idle:
+        raise AssertionError(f"the encodes did not launch {idle}")
+    for k, why in NOT_IN_ENCODER.items():
+        print(f"{k}: not launched by the encoder: {why}", flush=True)
+    counts = {k: dec_counts[k] + enc_counts[k] for k in dec_counts}
+    for k, why in NOT_ON_MAIN_PATH.items():
+        print(f"{k}: not launched by name on the main path: {why}", flush=True)
+    missing = [k for k, v in counts.items() if v == 0 and k not in NOT_ON_MAIN_PATH]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
 
-    # 5. results
+    # 6. results
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         row = chk.rows[name]

@@ -94,6 +94,37 @@ def test_deblock_dir(RDK, fmt, bd, hor):
 
 
 @pytest.mark.parametrize("bd", [8, 10])
+def test_deblock_luma_ver(RDK, bd):
+    """The single-component wrapper: pad + luma_ver_delta on the CPU."""
+    rng = np.random.default_rng(21)
+    plane = T.plane(rng, H, W, bd)
+    maps = T.deblock_maps(rng, H, W, bd, False)[:7]
+    ref = RDK.deblock_luma_ver(plane, *maps, bit_depth=bd)
+    got = DK.deblock_luma_ver(t(plane), *map(t, maps), bit_depth=bd)
+    assert_same(ref, got)
+    assert not np.array_equal(got.numpy(), plane), "no edge was filtered"
+
+
+@pytest.mark.parametrize("bd,loop_len,dec_line", [(8, 2, 1), (10, 4, 3)])
+def test_deblock_chroma_ver(RDK, bd, loop_len, dec_line):
+    """The single-component wrapper, maps on the chroma segment grid (the
+    one of subsampled and of full-resolution chroma)."""
+    rng = np.random.default_rng(22)
+    hc, wc = H // 2, W // 2
+    plane = T.plane(rng, hc, wc, bd)
+    # the luma-grid maps of a plane twice the size, one segment per
+    # (loop_len rows, 4 columns)
+    full = T.deblock_maps(rng, hc // loop_len * 4, wc, bd, False)
+    maps = tuple(np.ascontiguousarray(m) for m in full[7:10] + full[13:17])
+    assert maps[0].shape == (hc // loop_len, wc // 4)
+    kw = dict(bit_depth=bd, loop_len=loop_len, dec_line=dec_line)
+    ref = RDK.deblock_chroma_ver(plane, *maps, **kw)
+    got = DK.deblock_chroma_ver(t(plane), *map(t, maps), **kw)
+    assert_same(ref, got)
+    assert not np.array_equal(got.numpy(), plane), "no edge was filtered"
+
+
+@pytest.mark.parametrize("bd", [8, 10])
 def test_sao_apply(RSK, bd):
     rng = np.random.default_rng(12)
     src = T.plane(rng, H, W, bd)
@@ -221,6 +252,10 @@ def test_cuda_kernels_match_plain():
             for a, b in zip(DK.deblock_dir(y, cb, cr, *maps, **kw),
                             DK.deblock_dir_plain(y, cb, cr, *maps, **kw)):
                 assert torch.equal(a, b)
+        lmaps = [to_device(m, dev) for m in T.deblock_maps(rng, 128, 256, bd, False)[:7]]
+        assert torch.equal(DK.deblock_luma_ver(y, *lmaps, bit_depth=bd),
+                           DK.deblock_luma_ver(y.cpu(), *(m.cpu() for m in lmaps),
+                                               bit_depth=bd).to(dev))
         sao = [to_device(m, dev) for m in T.sao_maps(rng, 128, 256, 8, bd)]
         assert torch.equal(SK.sao_apply(y, *sao, bit_depth=bd),
                            SK.sao_apply_plain(y, *sao, bit_depth=bd))

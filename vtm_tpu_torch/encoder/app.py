@@ -1,0 +1,125 @@
+"""Encoder application of the port (EncApp equivalent, EncApp.cpp:1006).
+
+Usage:  python -m vtm_tpu_torch.encoder.app -c cfg/encoder_intra_vtm.cfg \
+            --InputFile=in.yuv --SourceWidth=W --SourceHeight=H --QP=32 \
+            --FramesToBeEncoded=N --BitstreamFile=out.bit [--ReconFile=rec.yuv] \
+            [--device cuda|cpu]
+
+Counterpart of vtm_tpu/encoder/app.py: the same `key : value` config files
+and `--Key=value` overrides (its `parse_cfg_file` and option handling).
+IntraPeriod 1 encodes all-intra through the port's IntraEncoder on the
+given torch device (default cuda; without CUDA it fails rather than run
+elsewhere); the inter encoders are not ported yet and raise.  --ReconFile
+decodes the stream with the port's Decoder on the same device.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+
+from vtm_tpu.encoder.app import parse_cfg_file
+
+
+def parse_args(argv) -> tuple[dict, str]:
+    """(options, device) from the command line, as the reference parses it,
+    plus --device (default cuda)."""
+    opts: dict = {}
+    device = "cuda"
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        if a in ("-c", "--config"):
+            opts.update(parse_cfg_file(argv[i + 1]))
+            i += 2
+        elif a.startswith("--device"):
+            if "=" in a:
+                device = a.split("=", 1)[1]
+                i += 1
+            else:
+                device = argv[i + 1]
+                i += 2
+        elif a.startswith("--") and "=" in a:
+            k, v = a[2:].split("=", 1)
+            opts[k] = v
+            i += 1
+        elif a.startswith("--"):
+            opts[a[2:]] = argv[i + 1]
+            i += 2
+        else:
+            i += 1
+    return opts, device
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    opts, device = parse_args(argv)
+
+    def geti(key, default):
+        return int(float(opts.get(key, default)))
+
+    w = geti("SourceWidth", 0)
+    h = geti("SourceHeight", 0)
+    qp = geti("QP", 32)
+    n = geti("FramesToBeEncoded", 1)
+    intra_period = geti("IntraPeriod", -1)
+    infile = opts.get("InputFile")
+    outfile = opts.get("BitstreamFile", "out.bit")
+    recon = opts.get("ReconFile")
+    bd = geti("InputBitDepth", 8)
+    if not (w and h and infile):
+        print("need InputFile, SourceWidth, SourceHeight", file=sys.stderr)
+        return 2
+    if intra_period != 1:
+        raise NotImplementedError(
+            f"IntraPeriod {intra_period}: the port encodes all-intra only "
+            "(IntraPeriod 1); the inter encoders are the next slice of the port")
+
+    import numpy as np
+
+    from vtm_tpu.common.types import ChromaFormat
+    from vtm_tpu.utils import yuv_io
+    from vtm_tpu_torch.encoder.enc_lib import EncoderConfig, IntraEncoder
+
+    fmt = yuv_io.YuvFormat(w, h, ChromaFormat.YUV420, bd)
+    frames = yuv_io.read_yuv(infile, fmt, n)
+    cfg = EncoderConfig(width=w, height=h, qp=qp, bit_depth=bd)
+    if geti("RateControl", 0) and geti("TargetBitrate", 0):
+        cfg.target_bitrate = geti("TargetBitrate", 0)
+        cfg.frame_rate = float(opts.get("FrameRate", 30))
+    # EncAppCfg's SEIDecodedPictureHash default (0), as the reference app
+    cfg.hash_sei = geti("SEIDecodedPictureHash", 0) != 0
+    enc = IntraEncoder(cfg, device=device)
+    t0 = time.time()
+    bits = enc.encode(frames)
+    dt = time.time() - t0
+    with open(outfile, "wb") as f:
+        f.write(bits)
+
+    def psnr(a, b, maxv):
+        mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+        return 10 * np.log10(maxv * maxv / mse) if mse else 99.0
+
+    maxv = (1 << bd) - 1
+    py = psnr(frames[-1][0], enc.last_recon[0], maxv)
+    for r in getattr(enc, "frame_log", []):
+        print(f"POC {r['poc']:4d} ( {r['type']}-SLICE, QP {r['qp']:2d} ) "
+              f"{r['bits']:10d} bits [Y {r['psnr'][0]:8.4f} dB  "
+              f"U {r['psnr'][1]:8.4f} dB  V {r['psnr'][2]:8.4f} dB]")
+    for st, s in enc.sequence_summary().items():
+        print(f"{st} Slices: {s['pics']} pics, {s['bits']} bits, avg PSNR "
+              f"Y {s['psnr'][0]:.4f} U {s['psnr'][1]:.4f} V {s['psnr'][2]:.4f}")
+    print(f"encoded {len(frames)} frames → {len(bits) * 8} bits in {dt:.1f} s "
+          f"({len(frames) / dt:.3f} fps) on {enc.device}, last-frame Y-PSNR "
+          f"{py:.2f} dB")
+    if recon:
+        # re-decode the stream for the recon file (bit-exact recon)
+        from vtm_tpu_torch.decoder.declib import Decoder
+
+        pics = Decoder(device=enc.device).decode_stream(bits)
+        yuv_io.write_yuv(recon, [p.planes for p in pics], fmt)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

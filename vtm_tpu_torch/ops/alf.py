@@ -1,10 +1,11 @@
-"""Host-side ALF table assembly for the port's alf_all.
+"""Host-side ALF table assembly for the port's alf_all, and the encoder's
+picture ALF.
 
 Fork of `build_alf_tables` of vtm_tpu/ops/alf.py: the same tables, with the
 virtual-boundary row helpers taken from the port's alf_kernel (the
 reference's module imports jax).  Everything else of the reference ALF
 (coefficient reconstruction, fixed filter sets, transpose tables) is
-imported unchanged.
+imported unchanged.  `alf_picture` is the counterpart of the reference's.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from vtm_tpu.ops.alf import (
     reconstruct_luma_coeffs,
 )
 from vtm_tpu_torch.ops import alf_kernel as K
+from vtm_tpu_torch.ops import edge_pad
+from vtm_tpu_torch.ops.filter_chain import to_device
 
 
 def build_alf_tables(dcs, pic):
@@ -141,3 +144,28 @@ def build_alf_tables(dcs, pic):
         bit_depth=bit_depth, sx=sxc, sy=syc, n_comp=n_comp,
         has_l=any_luma, has_cb=has_cb, has_cr=has_cr,
         has_cc1=has_cc1, has_cc2=has_cc2)
+
+
+def alf_picture(dcs, pic, device) -> None:
+    """ALFProcess over the picture on `device`: counterpart of
+    vtm_tpu/ops/alf.py:alf_picture (L303-333), the port's build_alf_tables
+    and alf_all (csrc/alf.cu on a GPU, the plain versions on the CPU), the
+    filtered planes written back in place into `pic.planes`."""
+    t = build_alf_tables(dcs, pic)
+    if t is None:
+        return
+    n_comp = t["n_comp"]
+    y = to_device(pic.planes[0], device)
+    y_pad = edge_pad(y, K.PAD, K.PAD)
+    cb = to_device(pic.planes[1], device) if n_comp > 1 else y_pad
+    cr = to_device(pic.planes[2], device) if n_comp > 2 else y_pad
+    oy, ocb, ocr = K.alf_all(
+        y_pad, cb, cr, *(to_device(a, device) for a in t["args"]),
+        bit_depth=t["bit_depth"], sx=t["sx"], sy=t["sy"],
+        has_l=t["has_l"], has_cb=t["has_cb"], has_cr=t["has_cr"],
+        has_cc1=t["has_cc1"], has_cc2=t["has_cc2"])
+    for comp, on, out in ((0, t["has_l"], oy),
+                          (1, t["has_cb"] or t["has_cc1"], ocb),
+                          (2, t["has_cr"] or t["has_cc2"], ocr)):
+        if on:
+            pic.planes[comp][:] = out.cpu().numpy().astype(pic.planes[comp].dtype)

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from vtm_tpu_torch import kernels as KN
-from vtm_tpu_torch.ops import clip3, edge_pad, where
+from vtm_tpu_torch.ops import clip3, edge_pad, pick, where
 
 # position-coefficient tables of xFilteringPandQ (LoopFilter.cpp)
 _DB7 = (59, 50, 41, 32, 23, 14, 5)
@@ -355,13 +355,21 @@ def _luma_cuda(y, maps, bit_depth, hor):
 
 
 def _chroma_cuda(plane, comp_maps, shared_maps, bit_depth, hor, sx, sy):
+    loop_len, dec_line, step = _chroma_geometry(hor, sx, sy)
+    mv = (comp_maps[0].T if hor else comp_maps[0])[:, ::step]
+    return _chroma_seg_cuda(plane, comp_maps, shared_maps, mv, bit_depth, hor,
+                            loop_len, dec_line)
+
+
+def _chroma_seg_cuda(plane, comp_maps, shared_maps, mv, bit_depth, hor,
+                     loop_len, dec_line):
+    """Chroma edges of `plane` with the maps read through `mv`'s view (the
+    segment grid: picture orientation of `plane`, strided as given)."""
     dev = plane.device
     KN.check(plane, "chroma plane", torch.int32, dev)
-    loop_len, dec_line, step = _chroma_geometry(hor, sx, sy)
     pv = plane.T if hor else plane
     Hc, Wc = pv.shape
     Hs, Ws = Hc // loop_len, Wc // 4
-    mv = (comp_maps[0].T if hor else comp_maps[0])[:, ::step]
     if tuple(mv.shape) != (Hs, Ws):
         raise ValueError(f"chroma maps give a {tuple(mv.shape)} segment grid, "
                          f"the plane needs {(Hs, Ws)}")
@@ -401,3 +409,39 @@ def deblock_dir(y, cb, cr, *maps, bit_depth: int, hor: bool, has_l: bool,
     fn = deblock_dir_cuda if y.is_cuda else deblock_dir_plain
     return fn(y, cb, cr, *maps, bit_depth=bit_depth, hor=hor, has_l=has_l,
               has_cb=has_cb, has_cr=has_cr, sx=sx, sy=sy)
+
+
+def deblock_luma_ver(plane, active, tc, beta, max_p, max_q, no_p, no_q,
+                     bit_depth: int):
+    """All vertical luma edges of `plane` (maps on its 4x4 grid): the
+    reference's single-component wrapper (deblock_kernel.py:50), a
+    composition of the port's luma filter.  CUDA tensors: the luma kernel of
+    csrc/deblock.cu; CPU tensors: pad and `luma_ver_delta`."""
+    maps = (active, tc, beta, max_p, max_q, no_p, no_q)
+    H, W = plane.shape
+    for i, m in enumerate(maps):
+        is_bool = i in (0, 5, 6)
+        KN.check(m, f"luma map {i}", torch.bool if is_bool else torch.int32,
+                 plane.device, (H // 4, W // 4))
+    if pick(plane, True, False):
+        return _luma_cuda(plane, maps, bit_depth, False)
+    return plane + luma_ver_delta(edge_pad(plane, 0, 8), *maps, bit_depth)[:, 8:-8]
+
+
+def deblock_chroma_ver(plane, active, tc, beta, large, no_p, no_q, hor_ctb,
+                       bit_depth: int, loop_len: int, dec_line: int):
+    """Vertical chroma edges of `plane` with maps on its segment grid
+    [Hc / loop_len, Wc / 4]: the reference's single-component wrapper
+    (deblock_kernel.py:336).  CUDA tensors: the chroma kernel of
+    csrc/deblock.cu; CPU tensors: `chroma_ver_core`."""
+    maps = (active, tc, beta, large, no_p, no_q, hor_ctb)
+    Hc, Wc = plane.shape
+    for i, m in enumerate(maps):
+        KN.check(m, f"chroma map {i}", torch.int32 if i in (1, 2) else torch.bool,
+                 plane.device, (Hc // loop_len, Wc // 4))
+    if pick(plane, True, False):
+        return _chroma_seg_cuda(plane, (active, tc, beta),
+                                (large, no_p, no_q, hor_ctb), active, bit_depth,
+                                False, loop_len, dec_line)
+    return chroma_ver_core(plane, active, tc, beta, large, no_p, no_q, hor_ctb,
+                           bit_depth, loop_len, dec_line)

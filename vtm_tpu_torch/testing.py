@@ -14,6 +14,8 @@ edges.  The MC, DMVR, FIR and BDOF cases use VTM's own filter tables
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from vtm_tpu.ops import mc as MC
@@ -219,3 +221,87 @@ def bdof_case(rng, n: int, w: int, h: int, bd: int) -> tuple:
     p0 = np.concatenate([np.clip(smooth0 + noise[0], lo, hi), wild[0]])
     p1 = np.concatenate([np.clip(smooth1 + noise[1], lo, hi), wild[1]])
     return p0.astype(np.int32), p1.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# encoder inputs
+
+TESTDATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "testdata")
+
+
+def read_source(name: str, w: int, h: int, frame: int = 0, bit_depth: int = 8):
+    """Frame `frame` of testdata/<name>.yuv (4:2:0) as int32 planes."""
+    from vtm_tpu.common.types import ChromaFormat
+    from vtm_tpu.utils.yuv_io import YuvFormat, read_yuv
+
+    fmt = YuvFormat(w, h, ChromaFormat.YUV420, bit_depth)
+    frames = read_yuv(os.path.join(TESTDATA, f"{name}.yuv"), fmt, frame + 1)
+    return [p.astype(np.int32) for p in frames[frame]]
+
+
+def hd_source(frame: int = 0, w: int = 1920, h: int = 1080):
+    """A w x h 4:2:0 8-bit picture (1920x1080 by default) mirror-tiled from
+    frame `frame` of testdata/bq416_416x240_420_8.yuv: natural content with
+    no seams, for the encoder at its north-star size (no 1080p source is in
+    the repo)."""
+    planes = read_source("bq416_416x240_420_8", 416, 240, frame)
+    out = []
+    for c, p in enumerate(planes):
+        ph, pw = (h, w) if c == 0 else (h // 2, w // 2)
+        out.append(np.pad(p, ((0, ph - p.shape[0]), (0, pw - p.shape[1])),
+                          mode="symmetric"))
+    return out
+
+
+def satd_diffs(rng, n: int, h: int, w: int, bit_depth: int) -> np.ndarray:
+    """n difference blocks (n, h, w) of two bit_depth pictures: random, with
+    the first blocks at the extremes (all +max, all -max, a +-max
+    checkerboard) that give each tile kind its largest sums."""
+    maxv = (1 << bit_depth) - 1
+    d = rng.integers(-maxv, maxv + 1, size=(n, h, w))
+    ext = [np.full((h, w), maxv), np.full((h, w), -maxv),
+           np.where((np.arange(h)[:, None] + np.arange(w)) % 2 == 0, maxv, -maxv)]
+    k = min(n, len(ext))
+    d[:k] = np.stack(ext[:k])
+    return d.astype(np.int32)
+
+
+def rmd_source(rng, h: int, w: int, bit_depth: int) -> np.ndarray:
+    """A blocky bit_depth source plane with flat runs (so RMD costs tie)
+    and samples at both ends of the range."""
+    p = plane(rng, h, w, bit_depth)
+    p[: h // 4, : w // 4] = (1 << bit_depth) - 1
+    p[h // 2:, w // 2:] = p[h // 2, w // 2]
+    return p
+
+
+def rmd_positions(rng, n: int, pic_w: int, pic_h: int, w: int, h: int):
+    """n block positions (xs, ys) of a w x h class on a pic_w x pic_h
+    picture, on the class's grid and including both corners."""
+    from vtm_tpu.encoder.rmd_tpu import _class_strides
+
+    sx, sy = _class_strides(w, h)
+    xs = rng.integers(0, (pic_w - w) // sx + 1, n) * sx
+    ys = rng.integers(0, (pic_h - h) // sy + 1, n) * sy
+    xs[0], ys[0] = 0, 0
+    xs[-1], ys[-1] = (pic_w - w) // sx * sx, (pic_h - h) // sy * sy
+    return xs.astype(np.int32), ys.astype(np.int32)
+
+
+def satd_f32_cases(rng, th: int, tw: int, bit_depth: int, n_try: int = 40_000):
+    """Difference tiles (n, th, tw) of a 16x8 / 8x16 / 8x4 / 4x8 tile kind on
+    which jax's float32 normalisation int(f32(s) * f32(2 / sqrt(th tw)))
+    and the float64 one of numpy's satd_batch give different integers
+    (about one tile in a thousand), found among n_try random tiles."""
+    import math
+
+    from vtm_tpu.ops import rdcost
+
+    maxv = (1 << bit_depth) - 1
+    d = rng.integers(-maxv, maxv + 1, size=(n_try, th, tw)).astype(np.int64)
+    s = rdcost._tile_satd_sum(d, th, tw)
+    norm = 2.0 / math.sqrt(th * tw)
+    f32 = (s.astype(np.float32) * np.float32(norm)).astype(np.int64)
+    f64 = (s.astype(np.float64) * norm).astype(np.int64)
+    return d[f32 != f64].astype(np.int32)
