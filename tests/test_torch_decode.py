@@ -18,19 +18,11 @@ import numpy as np
 import pytest
 import torch
 
-_had_flag = "VTM_TPU_NO_JIT_CACHE" in os.environ
-import vtm_tpu_torch  # noqa: E402,F401  (sets VTM_TPU_NO_JIT_CACHE)
-
-if not _had_flag:
-    # the flag is for the port's own processes; the reference's tests that
-    # share this worker keep their compile cache
-    os.environ.pop("VTM_TPU_NO_JIT_CACHE", None)
-
-from vtm_tpu.decoder import declib as ref_declib  # noqa: E402
-from vtm_tpu.decoder import filters as ref_filters  # noqa: E402
-from vtm_tpu_torch.decoder import app  # noqa: E402
-from vtm_tpu_torch.decoder.declib import Decoder, Picture  # noqa: E402
-from vtm_tpu_torch.ops import filter_chain as FC  # noqa: E402
+from vtm_tpu.decoder import declib as ref_declib
+from vtm_tpu.decoder import filters as ref_filters
+from vtm_tpu_torch.decoder import app
+from vtm_tpu_torch.decoder.declib import Decoder, Picture
+from vtm_tpu_torch.ops import filter_chain as FC
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TD = os.path.join(ROOT, "testdata")
@@ -106,21 +98,21 @@ def test_decode_hash_exact_hd1080():
 
 
 def test_decode_without_jax():
-    """With jax unimportable (as on the GPU machine) the port still decodes
-    hash-exact, and no jax module is ever loaded."""
+    """With jax and the reference package unimportable the port still
+    decodes hash-exact, and loads neither."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['vtm_tpu'] = None\n"
         "from vtm_tpu_torch.decoder.declib import Decoder\n"
         "dec = Decoder(device='cpu')\n"
         "pics = dec.decode_stream(open('testdata/ai_full_tiny64_qp32.bit', 'rb').read())\n"
         "assert len(pics) == 2 and [h.ok for h in dec.hash_results] == [True, True]\n"
-        "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'vtm_tpu')"
         " and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
         "print('ok')\n")
-    env = {k: v for k, v in os.environ.items() if k != "VTM_TPU_NO_JIT_CACHE"}
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"

@@ -16,17 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-_had_flag = "VTM_TPU_NO_JIT_CACHE" in os.environ
-import vtm_tpu_torch  # noqa: E402,F401  (sets VTM_TPU_NO_JIT_CACHE)
-
-if not _had_flag:
-    os.environ.pop("VTM_TPU_NO_JIT_CACHE", None)
-
-from vtm_tpu.encoder.enc_lib import EncoderConfig  # noqa: E402
-from vtm_tpu.encoder.rmd_tpu import intra_class_list  # noqa: E402
-from vtm_tpu_torch import testing as T  # noqa: E402
-from vtm_tpu_torch.encoder import rmd as RMD  # noqa: E402
-from vtm_tpu_torch.ops import rdcost as RC  # noqa: E402
+from vtm_tpu.encoder.enc_lib import EncoderConfig
+from vtm_tpu.encoder.rmd_tpu import intra_class_list
+from vtm_tpu_torch import testing as T
+from vtm_tpu_torch.encoder import rmd as RMD
+from vtm_tpu_torch.ops import rdcost as RC
 
 PIC_H, PIC_W = 80, 96
 CLASSES = intra_class_list(EncoderConfig(width=PIC_W, height=PIC_H))

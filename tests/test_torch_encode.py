@@ -19,21 +19,15 @@ import numpy as np
 import pytest
 import torch
 
-_had_flag = "VTM_TPU_NO_JIT_CACHE" in os.environ
-import vtm_tpu_torch  # noqa: E402,F401  (sets VTM_TPU_NO_JIT_CACHE)
-
-if not _had_flag:
-    os.environ.pop("VTM_TPU_NO_JIT_CACHE", None)
-
-from vtm_tpu.encoder import enc_lib as ref_enc  # noqa: E402
-from vtm_tpu.encoder.enc_lib import EncoderConfig  # noqa: E402
-from vtm_tpu_torch import testing as T  # noqa: E402
-from vtm_tpu_torch.decoder.declib import Decoder  # noqa: E402
-from vtm_tpu_torch.encoder import app  # noqa: E402
-from vtm_tpu_torch.encoder.enc_lib import IntraEncoder  # noqa: E402
-from vtm_tpu_torch.ops import alf as ALFP  # noqa: E402
-from vtm_tpu_torch.ops import deblock as DBP  # noqa: E402
-from vtm_tpu_torch.ops import sao as SAOP  # noqa: E402
+from vtm_tpu.encoder import enc_lib as ref_enc
+from vtm_tpu.encoder.enc_lib import EncoderConfig
+from vtm_tpu_torch import testing as T
+from vtm_tpu_torch.decoder.declib import Decoder
+from vtm_tpu_torch.encoder import app
+from vtm_tpu_torch.encoder.enc_lib import IntraEncoder
+from vtm_tpu_torch.ops import alf as ALFP
+from vtm_tpu_torch.ops import deblock as DBP
+from vtm_tpu_torch.ops import sao as SAOP
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -151,15 +145,15 @@ def test_app_round_trip_without_jax(tmp_path):
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['vtm_tpu'] = None\n"
         "from vtm_tpu_torch.encoder import app\n"
         f"rc = app.main({opts + [f'--BitstreamFile={bits}', f'--ReconFile={rec}', '--device', 'cpu']!r})\n"
         "assert rc == 0\n"
-        "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'vtm_tpu')"
         " and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
         "print('ok')\n")
-    env = {k: v for k, v in os.environ.items() if k != "VTM_TPU_NO_JIT_CACHE"}
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().splitlines()[-1] == "ok"

@@ -9,25 +9,16 @@ machine with a CUDA card (chip_smoke.py makes the same comparison there).
 
 import importlib
 import importlib.util
-import os
 
 import numpy as np
 import pytest
 import torch
 
-_had_flag = "VTM_TPU_NO_JIT_CACHE" in os.environ
-import vtm_tpu_torch  # noqa: E402,F401  (sets VTM_TPU_NO_JIT_CACHE)
-
-if not _had_flag:
-    # the flag is for the port's own processes; the reference's tests that
-    # share this worker keep their compile cache
-    os.environ.pop("VTM_TPU_NO_JIT_CACHE", None)
-
-from vtm_tpu_torch import testing as T  # noqa: E402
-from vtm_tpu_torch.ops import alf_kernel as AK  # noqa: E402
-from vtm_tpu_torch.ops import deblock_kernel as DK  # noqa: E402
-from vtm_tpu_torch.ops import sao_kernel as SK  # noqa: E402
-from vtm_tpu_torch.ops.filter_chain import to_device  # noqa: E402
+from vtm_tpu_torch import testing as T
+from vtm_tpu_torch.ops import alf_kernel as AK
+from vtm_tpu_torch.ops import deblock_kernel as DK
+from vtm_tpu_torch.ops import sao_kernel as SK
+from vtm_tpu_torch.ops.filter_chain import to_device
 
 CPU = torch.device("cpu")
 H, W = 64, 128

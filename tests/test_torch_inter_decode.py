@@ -18,19 +18,11 @@ import numpy as np
 import pytest
 import torch
 
-_had_flag = "VTM_TPU_NO_JIT_CACHE" in os.environ
-import vtm_tpu_torch  # noqa: E402,F401  (sets VTM_TPU_NO_JIT_CACHE)
-
-if not _had_flag:
-    # the flag is for the port's own processes; the reference's tests that
-    # share this worker keep their compile cache
-    os.environ.pop("VTM_TPU_NO_JIT_CACHE", None)
-
-from vtm_tpu.decoder import declib as ref_declib  # noqa: E402
-from vtm_tpu_torch.decoder import app, filters, refine  # noqa: E402
-from vtm_tpu_torch.decoder.declib import Decoder  # noqa: E402
-from vtm_tpu_torch.ops import mc_kernel as MK  # noqa: E402
-from vtm_tpu_torch.ops import refine_kernel as RK  # noqa: E402
+from vtm_tpu.decoder import declib as ref_declib
+from vtm_tpu_torch.decoder import app, filters, refine
+from vtm_tpu_torch.decoder.declib import Decoder
+from vtm_tpu_torch.ops import mc_kernel as MK
+from vtm_tpu_torch.ops import refine_kernel as RK
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TD = os.path.join(ROOT, "testdata")
@@ -122,25 +114,26 @@ def test_dmvr_motion_field_matches_reference(monkeypatch):
 
 
 def test_inter_decode_without_jax():
-    """With jax unimportable the port decodes an RA stream with DMVR and
-    BDOF hash-exact, through the batched DMVR, and never loads jax."""
+    """With jax and the reference package unimportable the port decodes the
+    flagship RA stream (every inter tool, DMVR and BDOF) hash-exact, through
+    the batched DMVR, and loads neither."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['vtm_tpu'] = None\n"
         "from vtm_tpu_torch.decoder import refine\n"
         "from vtm_tpu_torch.decoder.declib import Decoder\n"
         "real, n = refine.dmvr_batch, []\n"
         "refine.dmvr_batch = lambda *a: n.append(1) or real(*a)\n"
         "dec = Decoder(device='cpu')\n"
-        "pics = dec.decode_stream(open('testdata/ra_dmvr_small208_qp32.bit', 'rb').read())\n"
-        "assert len(pics) == 3 and all(h.ok for h in dec.hash_results)\n"
-        "assert len(dec.hash_results) == 3 and n\n"
-        "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')"
+        "pics = dec.decode_stream(open('testdata/ra_full_bq416_qp37.bit', 'rb').read())\n"
+        "assert len(pics) == 8 and all(h.ok for h in dec.hash_results)\n"
+        "assert len(dec.hash_results) == 8 and n\n"
+        "loaded = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'vtm_tpu')"
         " and sys.modules[m] is not None]\n"
         "assert not loaded, loaded\n"
         "print('ok')\n")
-    env = {k: v for k, v in os.environ.items() if k != "VTM_TPU_NO_JIT_CACHE"}
-    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"

@@ -17,19 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-_had_flag = "VTM_TPU_NO_JIT_CACHE" in os.environ
-import vtm_tpu_torch  # noqa: E402,F401  (sets VTM_TPU_NO_JIT_CACHE)
-
-if not _had_flag:
-    # the flag is for the port's own processes; the reference's tests that
-    # share this worker keep their compile cache
-    os.environ.pop("VTM_TPU_NO_JIT_CACHE", None)
-
-from vtm_tpu.ops import mc as MC  # noqa: E402
-from vtm_tpu_torch import testing as T  # noqa: E402
-from vtm_tpu_torch.ops import mc_kernel as MK  # noqa: E402
-from vtm_tpu_torch.ops import refine_kernel as RK  # noqa: E402
-from vtm_tpu_torch.ops.filter_chain import to_device  # noqa: E402
+from vtm_tpu.ops import mc as MC
+from vtm_tpu_torch import testing as T
+from vtm_tpu_torch.ops import mc_kernel as MK
+from vtm_tpu_torch.ops import refine_kernel as RK
+from vtm_tpu_torch.ops.filter_chain import to_device
 
 CPU = torch.device("cpu")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -13,6 +13,15 @@
 // per-window deltas instead; the two agree because the max-filter-length
 // rules keep the samples one edge writes disjoint from another's.
 //
+// The delta form (`vtm_deblock_luma_ver_delta`, the counterpart of
+// luma_ver_delta, deblock_kernel.py:68) runs the same luma kernel on a plane
+// already extended by 8 columns each side (a shard with its neighbours'
+// halo, under width sharding) and returns the sample deltas over the
+// extended width: each filtered sample adds (new - old) into a zeroed
+// buffer with an integer atomic, so the result is the jax version's sum of
+// per-window deltas whatever the order, and the deltas that fall into the
+// halo are what the neighbouring shard receives back.
+//
 // Bound on the H100: memory.  A sample is read by at most four threads
 // (three decision/window loads for the segment's rows), mostly from L1/L2;
 // device traffic is about one read and one write of each int32 sample plus
@@ -77,6 +86,10 @@ __device__ __forceinline__ int luma_long_val(int pos, int n, int src, int mid,
 // Plane element (r, c) of the oriented frame is at r * prs + c * pcs; map
 // element (r4, c4) at r4 * mrs + c4 * mcs.  row_fast puts threadIdx.x on rows
 // (horizontal edges, where rows of the oriented frame are contiguous).
+// DELTA: `in` is extended by 8 columns each side (W counts them, the maps
+// cover the W - 16 inner columns) and `out` is a zeroed delta buffer of the
+// same shape.
+template <bool DELTA>
 __global__ void luma_ver_kernel(
     const int* __restrict__ in, int* __restrict__ out, int H, int W,
     long long prs, long long pcs, const uint8_t* __restrict__ act,
@@ -88,12 +101,13 @@ __global__ void luma_ver_kernel(
   const int b = blockIdx.y * blockDim.y + threadIdx.y;
   const int seg = row_fast ? b : a;
   const int row = row_fast ? a : b;
-  if (seg >= (W >> 2) || row >= ((H >> 2) << 2)) return;
+  const int nseg = DELTA ? (W - 16) >> 2 : W >> 2;
+  if (seg >= nseg || row >= ((H >> 2) << 2)) return;
   const long long mo = (long long)(row >> 2) * mrs + (long long)seg * mcs;
   if (!act[mo]) return;
   const int tc = tcm[mo], beta = betam[mo], max_p = mpm[mo], max_q = mqm[mo];
   const bool pm = !nopm[mo], qm = !noqm[mo];
-  const int x0 = seg * 4, r0 = row & ~3;
+  const int x0 = seg * 4 + (DELTA ? 8 : 0), r0 = row & ~3;
 
   int l0[16], l3[16], s[16];
 #pragma unroll
@@ -106,7 +120,10 @@ __global__ void luma_ver_kernel(
   int* orow = out + (long long)row * prs;
   auto put = [&](int i, int v) {
     const int x = x0 + i;
-    if (x >= 0 && x < W) orow[(long long)x * pcs] = v;
+    if (DELTA)  // x0 - 8 >= 0 and x0 + 7 < W: the window lies in the plane
+      atomicAdd(orow + (long long)x * pcs, v - L(s, i));
+    else if (x >= 0 && x < W)
+      orow[(long long)x * pcs] = v;
   };
 
   const bool side_p = max_p > 3, side_q = max_q > 3;
@@ -328,9 +345,27 @@ VTM_API int vtm_deblock_luma_ver(
   if (nseg == 0 || nrow == 0) return 0;
   const int row_fast = pcs != 1;
   const dim3 block(32, 8);
-  luma_ver_kernel<<<edge_grid(nseg, nrow, row_fast, block), block, 0, st>>>(
+  luma_ver_kernel<false><<<edge_grid(nseg, nrow, row_fast, block), block, 0, st>>>(
       in, out, H, W, prs, pcs, act, tc, beta, max_p, max_q, no_p, no_q, mrs,
       mcs, (1 << bit_depth) - 1, row_fast);
+  return launch_status();
+}
+
+// Deltas of the vertical luma edges of a contiguous plane `pad` extended by
+// 8 columns each side (Wp = W + 16 columns; maps [H / 4, W / 4]).
+VTM_API int vtm_deblock_luma_ver_delta(
+    const int* pad, int* delta, int H, int Wp, const uint8_t* act,
+    const int* tc, const int* beta, const int* max_p, const int* max_q,
+    const uint8_t* no_p, const uint8_t* no_q, int bit_depth, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e = cudaMemsetAsync(delta, 0, (size_t)H * Wp * sizeof(int), st);
+  if (e != cudaSuccess) return (int)e;
+  const int nseg = (Wp - 16) >> 2, nrow = (H >> 2) << 2;
+  if (nseg <= 0 || nrow == 0) return 0;
+  const dim3 block(32, 8);
+  luma_ver_kernel<true><<<edge_grid(nseg, nrow, 0, block), block, 0, st>>>(
+      pad, delta, H, Wp, Wp, 1, act, tc, beta, max_p, max_q, no_p, no_q, nseg,
+      1, (1 << bit_depth) - 1, 0);
   return launch_status();
 }
 

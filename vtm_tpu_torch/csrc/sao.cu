@@ -1,11 +1,14 @@
 // Sample adaptive offset of one plane.
 //
-// Replaces vtm_tpu/ops/sao_kernel.py:sao_apply (sao_apply_ext).  One thread
-// per sample: the edge class from the signs against its two neighbours in
-// the CTU's direction (edge-replicated at the picture border, as jnp.pad
-// "edge" does), or the band c >> (bd - 5); then the per-CTU offset gather
-// offsets[ctu_map, idx], the clip and the validity mask.  Both gather indices
-// are clamped as jax clamps them.
+// Replaces vtm_tpu/ops/sao_kernel.py:sao_apply (L19) and sao_apply_ext (L28).
+// One thread per sample: the edge class from the signs against its two
+// neighbours in the CTU's direction, or the band c >> (bd - 5); then the
+// per-CTU offset gather offsets[ctu_map, idx], the clip and the validity
+// mask.  Both gather indices are clamped as jax clamps them.  The two entry
+// points differ only in where the neighbours come from: `vtm_sao_apply`
+// clamps into the plane (edge replication at the picture border, as
+// jnp.pad "edge" does), `vtm_sao_apply_ext` reads a source already
+// extended by one sample on every side (a shard's halo under sharding).
 //
 // Bound on the H100: memory.  Each sample moves 4 (src) + 4 (type) + 4 (ctu)
 // + 1 (valid) bytes in and 4 out, about 17 bytes; the 3x3 neighbourhood and
@@ -13,6 +16,8 @@
 
 #include "common.cuh"
 
+// EXT: `src` is (H + 2) x (W + 2), the plane with a one-sample border.
+template <bool EXT>
 __global__ void sao_kernel(const int* __restrict__ src, int* __restrict__ out,
                            const int* __restrict__ type_map,
                            const int* __restrict__ ctu_map,
@@ -23,14 +28,15 @@ __global__ void sao_kernel(const int* __restrict__ src, int* __restrict__ out,
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= W || y >= H) return;
   const long long o = (long long)y * W + x;
-  const int c = src[o];
+  auto at = [&](int dy, int dx) {
+    if (EXT) return src[(long long)(y + 1 + dy) * (W + 2) + (x + 1 + dx)];
+    return src[(long long)clampi(y + dy, H) * W + clampi(x + dx, W)];
+  };
+  const int c = at(0, 0);
   if (!valid[o]) {
     out[o] = c;
     return;
   }
-  auto at = [&](int dy, int dx) {
-    return src[(long long)clampi(y + dy, H) * W + clampi(x + dx, W)];
-  };
   const int t = type_map[o];
   int idx;
   switch (t) {
@@ -55,8 +61,21 @@ VTM_API int vtm_sao_apply(const int* src, int* out, const int* type_map,
                           int bit_depth, void* stream) {
   if (H == 0 || W == 0) return 0;
   const dim3 block(32, 8);
-  sao_kernel<<<grid2d(W, H, block), block, 0, (cudaStream_t)stream>>>(
+  sao_kernel<false><<<grid2d(W, H, block), block, 0, (cudaStream_t)stream>>>(
       src, out, type_map, ctu_map, offsets, valid, H, W, n_ctu, bit_depth - 5,
+      (1 << bit_depth) - 1);
+  return launch_status();
+}
+
+// `pad` is (H + 2) x (W + 2); out, the maps and `valid` are H x W.
+VTM_API int vtm_sao_apply_ext(const int* pad, int* out, const int* type_map,
+                              const int* ctu_map, const int* offsets,
+                              const uint8_t* valid, int H, int W, int n_ctu,
+                              int bit_depth, void* stream) {
+  if (H == 0 || W == 0) return 0;
+  const dim3 block(32, 8);
+  sao_kernel<true><<<grid2d(W, H, block), block, 0, (cudaStream_t)stream>>>(
+      pad, out, type_map, ctu_map, offsets, valid, H, W, n_ctu, bit_depth - 5,
       (1 << bit_depth) - 1);
   return launch_status();
 }

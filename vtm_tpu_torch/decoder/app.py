@@ -9,7 +9,7 @@ without CUDA it fails rather than run elsewhere), writes the output
 pictures in display order, verifies decoded-picture-hash SEIs, and
 optionally writes a conformance `.opl` file (POC, resolution, MD5 per
 picture — DecApp.cpp:329-333).  `--stats` prints per-syntax bit
-statistics (vtm_tpu.decoder.stats.BitStats, the DecoderAnalyser build's
+statistics (decoder/stats.py BitStats, the DecoderAnalyser build's
 equivalent).
 """
 
@@ -33,14 +33,14 @@ def main(argv=None):
                     help="torch device of the sample path (cuda or cpu)")
     args = ap.parse_args(argv)
 
-    from vtm_tpu.utils import pic_hash, yuv_io
+    from vtm_tpu_torch.utils import pic_hash, yuv_io
     from vtm_tpu_torch.decoder.declib import Decoder
 
     with open(args.bitstream, "rb") as f:
         data = f.read()
     dec = Decoder(device=args.device)
     if args.stats:
-        from vtm_tpu.decoder.stats import BitStats
+        from vtm_tpu_torch.decoder.stats import BitStats
 
         dec.bit_stats = BitStats()
     t0 = time.time()

@@ -1,22 +1,29 @@
-"""Slice-data decoding of the port: substream extraction + CTU loop.
+"""Slice-data decoding: substream extraction + CTU loop.
 
-Fork of vtm_tpu/decoder/dec_slice.py:decompress_slice (DecoderLib/DecSlice.cpp
-decompressSlice:73).  It differs from the reference only in the CU
-reconstructor it builds: the port's, on the decoder's torch device, whose
-finish_slice runs the slice's MC, DMVR and BDOF through the port's kernels.
+Behavioral equivalent of DecoderLib/DecSlice.cpp decompressSlice:73 —
+substream split at entry points (tiles / WPP rows), CABAC init/reset rules,
+WPP top-row context sync, per-CTU parse + reconstruct, terminating bits.
+The CU reconstructor runs on the decoder's torch device: its finish_slice
+runs the slice's MC, DMVR and BDOF through the port's kernels.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from vtm_tpu.common.types import SliceType
-from vtm_tpu.decoder import cs as D
-from vtm_tpu.decoder.cabac import ContextModels, make_cabac_decoder
-from vtm_tpu.decoder.cabac_reader import SaoParams, SyntaxReader
-from vtm_tpu.decoder.cs import Rect
-from vtm_tpu.decoder.dec_slice import _ctx_init_id
+from vtm_tpu_torch.common.types import SliceType
+from vtm_tpu_torch.decoder import cs as D
+from vtm_tpu_torch.decoder.cabac import CabacDecoder, ContextModels, make_cabac_decoder
+from vtm_tpu_torch.decoder.cabac_reader import SaoParams, SyntaxReader
+from vtm_tpu_torch.decoder.cs import Rect
 from vtm_tpu_torch.decoder.dec_cu import CuReconstructor
+
+
+def _ctx_init_id(sh) -> int:
+    t = int(sh.slice_type)
+    if sh.cabac_init_flag and sh.slice_type != SliceType.I:
+        t = int(SliceType.P) if sh.slice_type == SliceType.B else int(SliceType.B)
+    return t
 
 
 def decompress_slice(dec, sps, pps, ph, sh, r) -> None:
@@ -42,7 +49,7 @@ def decompress_slice(dec, sps, pps, ph, sh, r) -> None:
     dcs.aps_map = dict(dec.psm.aps)
     dcs.__dict__.setdefault("_slice_headers", []).append(sh)
     if sh.lmcs_enabled:
-        from vtm_tpu.ops.lmcs import LmcsModel
+        from vtm_tpu_torch.ops.lmcs import LmcsModel
 
         aps = dec.psm.aps[(1, ph.lmcs_aps_id)]
         cache = dec.__dict__.setdefault("_lmcs_cache", {})
@@ -65,7 +72,7 @@ def decompress_slice(dec, sps, pps, ph, sh, r) -> None:
     for addr in sh.ctu_addrs:
         dcs.slice_idx_of_ctu[addr] = dcs.cur_slice_idx
     # motion field (shared per picture; slices append)
-    from vtm_tpu.decoder import motion as M
+    from vtm_tpu_torch.decoder import motion as M
 
     if not hasattr(dcs, "mf_inter"):
         M.init_motion_field(dcs)

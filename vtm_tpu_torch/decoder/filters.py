@@ -1,28 +1,28 @@
-"""In-loop filter chain of the decoder (DecLib::executeLoopFilters:596).
+"""In-loop filter chain for the decoder (DecLib::executeLoopFilters:596).
 
-Counterpart of vtm_tpu/decoder/filters.py.  The stage parameters come from
-vtm_tpu's unchanged host functions (build_pic_maps, build_sao_maps) and the
-port's build_alf_tables; the chain runs on the decoder's torch device and
-its packed output stays there until the picture's first host use.  After
-the chain, DMVR-refined MVs go into the motion field for the TMVP of later
-pictures, as in the reference.
-
-Not carried over: the filter-capture hook.
+Order: LMCS inverse luma mapping → deblocking → SAO → ALF / CC-ALF.
+The stage parameters are built on the host from the per-picture state of
+slice decode; the chain runs on the decoder's torch device
+(ops/filter_chain.py) and its packed output stays there until the
+picture's first host use.  After the chain, DMVR-refined MVs go into the
+motion field for the TMVP of later pictures.
 """
 
 from __future__ import annotations
 
-from vtm_tpu.decoder import motion as M
-from vtm_tpu.ops import deblock as DB
-from vtm_tpu.ops import sao as SAO
+from vtm_tpu_torch.decoder import motion as M
 from vtm_tpu_torch.ops import alf as ALF
+from vtm_tpu_torch.ops import deblock as DB
 from vtm_tpu_torch.ops import filter_chain as FC
+from vtm_tpu_torch.ops import sao as SAO
 
 
 def apply_loop_filters(dec, pic) -> None:
     if not hasattr(pic, "dcs"):
         return
     dcs = pic.dcs
+    # all filter parameters are sample-independent: build every stage's
+    # maps first, then run LMCS→deblock→SAO→ALF on the device
     lmcs = getattr(pic, "lmcs_model", None)
     lmcs_lut = None
     if lmcs is not None and any(sl.lmcs_enabled for sl in pic.slices):

@@ -5,9 +5,9 @@ Usage:  python -m vtm_tpu_torch.encoder.app -c cfg/encoder_intra_vtm.cfg \
             --FramesToBeEncoded=N --BitstreamFile=out.bit [--ReconFile=rec.yuv] \
             [--device cuda|cpu]
 
-Counterpart of vtm_tpu/encoder/app.py: the same `key : value` config files
-and `--Key=value` overrides (its `parse_cfg_file` and option handling).
-IntraPeriod 1 encodes all-intra through the port's IntraEncoder on the
+Supports the reference's `key : value` config-file grammar and
+`--Key=value` CLI overrides (program_options_lite equivalent); unknown
+options are accepted and ignored.  IntraPeriod 1 encodes all-intra through the port's IntraEncoder on the
 given torch device (default cuda; without CUDA it fails rather than run
 elsewhere); the inter encoders are not ported yet and raise.  --ReconFile
 decodes the stream with the port's Decoder on the same device.
@@ -18,7 +18,17 @@ from __future__ import annotations
 import sys
 import time
 
-from vtm_tpu.encoder.app import parse_cfg_file
+
+def parse_cfg_file(path: str) -> dict:
+    opts = {}
+    with open(path) as f:
+        for line in f:
+            line = line.split("#", 1)[0].strip()
+            if not line or ":" not in line:
+                continue
+            key, val = line.split(":", 1)
+            opts[key.strip()] = val.strip()
+    return opts
 
 
 def parse_args(argv) -> tuple[dict, str]:
@@ -77,8 +87,8 @@ def main(argv=None):
 
     import numpy as np
 
-    from vtm_tpu.common.types import ChromaFormat
-    from vtm_tpu.utils import yuv_io
+    from vtm_tpu_torch.common.types import ChromaFormat
+    from vtm_tpu_torch.utils import yuv_io
     from vtm_tpu_torch.encoder.enc_lib import EncoderConfig, IntraEncoder
 
     fmt = yuv_io.YuvFormat(w, h, ChromaFormat.YUV420, bd)

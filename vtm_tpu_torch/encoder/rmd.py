@@ -19,8 +19,8 @@ argmin over the MIP columns, or 2^30 and 0 without MIP).
 * CUDA tensors: csrc/rmd.cu, three kernels (angular, MIP, reduce) with the
   SATD of csrc/satd.cuh fused in; no prediction is ever stored.
 
-The per-class tables come from vtm_tpu's numpy table functions
-(`class_tables`, `rom.mip_matrix`), composed here into direct indices into
+The per-class tables come from the numpy table functions below
+(`class_tables`, `rom.mip_matrix`), composed into direct indices into
 the reference buffer C = [Tu | Lu | Tf | Lf | 0] and uploaded once per
 class and device.
 
@@ -37,16 +37,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from vtm_tpu.common import rom
-from vtm_tpu.encoder.rmd_tpu import (
-    _class_strides,
-    class_tables,
-    intra_class_list,
-)
-from vtm_tpu.ops import intra as I
 from vtm_tpu_torch import kernels as KN
+from vtm_tpu_torch.common import rom
 from vtm_tpu_torch.device import resolve_device
 from vtm_tpu_torch.ops import clamp_index, pick, upload
+from vtm_tpu_torch.ops import intra as I
 from vtm_tpu_torch.ops.rdcost import KINDS, satd_batch_plain, satd_kind
 
 N_ANG = 67
@@ -58,6 +53,178 @@ GROUPS = ("ver", "hor")
 TAB_HEAD = 8 * len(GROUPS)
 # sample-mode products of one plain chunk (int32 tensors of 32 MB)
 CHUNK = 1 << 23
+
+
+# ---------------------------------------------------------------------------
+# host-side per-class mode tables (depend only on (w, h, bit_depth))
+
+_CLASS_TABLES: dict = {}
+
+
+def _seg_bases(w: int, h: int):
+    """Index bases of the concat ref buffer C = [Tu|Lu|Tf|Lf|0]."""
+    tu = 0
+    lu = 2 * w + 1
+    tf = lu + 2 * h + 1
+    lf = tf + 2 * w + 1
+    zero = lf + 2 * h + 1
+    return tu, lu, tf, lf, zero
+
+
+def _build_mode_tables(w: int, h: int, bit_depth: int):
+    """Per-mode symbolic gather tables for angular modes 2..66.
+
+    Returns dict with two groups ('ver'/'hor'), each holding stacked
+    numpy arrays: modes, rm_sym (M,L), gi (M,dh,dw,4), f (M,dh,4),
+    wl (M,dw), rs_sym (M,LS), sidx (M,dh,dw); plus scalars.
+    """
+    tu0, lu0, tf0, lf0, zslot = _seg_bases(w, h)
+    lc = zslot + 1
+
+    groups = {True: [], False: []}
+    for m in range(2, 67):
+        if m in (I.HOR_IDX, I.VER_IDX):
+            continue  # angle==0: special PDPC, computed in _planar_dc_jnp
+        p = I.IntraParams(m, w, h, w, h, True, 0, False, False)
+        angle, inv_angle, is_ver = p.intra_pred_angle, p.inv_angle, p.is_mode_ver
+        filt = p.ref_filter_flag
+        # main/side segment bases in C for this orientation
+        if is_ver:
+            t_seg = tf0 if filt else tu0
+            l_seg = lf0 if filt else lu0
+            mw, mh = w, h  # main length w-based, side h-based
+        else:
+            t_seg = lf0 if filt else lu0  # "top" role played by left col
+            l_seg = tf0 if filt else tu0
+            mw, mh = h, w
+        dh, dw = (h, w) if is_ver else (w, h)
+        # ref_main symbolic array over absolute indices [0 .. rm + 2mw + 2]
+        if angle < 0:
+            rm = mh
+            L = mh + mw + 2
+            sym = np.full(L, zslot, dtype=np.int64)
+            for k in range(mw + 2):
+                sym[rm + k] = t_seg + k
+            ks = np.arange(-mh, 0, dtype=np.int64)
+            sidx = np.minimum((-ks * inv_angle + 256) >> 9, mh)
+            sym[0:mh] = l_seg + sidx
+            rs_len = 0  # no pos-angle PDPC
+            rs_sym = np.zeros(1, dtype=np.int64)
+        else:
+            rm = 0
+            L = 2 * mw + 3
+            sym = np.full(L, zslot, dtype=np.int64)
+            for k in range(2 * mw + 1):
+                sym[k] = t_seg + k
+            sym[2 * mw + 1 :] = t_seg + 2 * mw
+            # side for PDPC: unpadded side col (same filter choice),
+            # zeros beyond 2mh (scalar path zero-pads)
+            rs_len = 2 * mh + 1
+            rs_sym = np.full(rs_len, zslot, dtype=np.int64)
+            for k in range(rs_len):
+                rs_sym[k] = l_seg + k
+        # per-row interpolation
+        di = np.zeros(dh, dtype=np.int64)
+        f = np.zeros((dh, 4), dtype=np.int64)
+        yr = np.arange(dh, dtype=np.int64)
+        delta_pos = angle * (1 + yr)
+        delta_int = delta_pos >> 5
+        delta_fract = delta_pos & 31
+        if (abs(angle) & 0x1F) == 0:
+            f[:] = np.array([64, 0, 0, 0], dtype=np.int64)
+            di[:] = delta_int + 1
+        elif not p.interpolation_flag:
+            f[:] = I._CHROMA_FILTER[delta_fract]
+            di[:] = delta_int
+        else:
+            hf = delta_fract >> 1
+            f[:] = np.stack([16 - hf, 32 - hf, 16 + hf, hf], axis=1)
+            di[:] = delta_int
+        xr = np.arange(dw, dtype=np.int64)
+        gi = rm + di[:, None] + xr[None, :]  # (dh, dw) base gather idx
+        # PDPC (angle > 0 only; angle < 0 has apply_pdpc False; angle==0
+        # excluded from this table — handled separately)
+        wl = np.zeros(dw, dtype=np.int64)
+        sidx_t = np.zeros((dh, dw), dtype=np.int64)
+        if angle > 0 and p.apply_pdpc:
+            scale = p.angular_scale
+            nx = min(3 << scale, dw)
+            wl[:nx] = 32 >> ((2 * xr[:nx]) >> scale)
+            inv_sum = 256 + (xr + 1) * inv_angle
+            s_t = yr[:, None] + (inv_sum >> 9)[None, :] + 1
+            sidx_t[:] = np.minimum(s_t, rs_len - 1 if rs_len else 0)
+        groups[is_ver].append(
+            dict(mode=m, sym=sym, gi=gi, f=f, wl=wl, rs_sym=rs_sym,
+                 sidx=sidx_t, clip_free=(abs(angle) & 0x1F) == 0
+                 and not (angle > 0 and p.apply_pdpc))
+        )
+
+    out = {}
+    for is_ver, recs in groups.items():
+        if not recs:
+            continue
+        M = len(recs)
+        lmax = max(len(r["sym"]) for r in recs)
+        lsmax = max(len(r["rs_sym"]) for r in recs)
+        sym = np.full((M, lmax), zslot, dtype=np.int64)
+        rs = np.full((M, lsmax), zslot, dtype=np.int64)
+        dh, dw = (h, w) if is_ver else (w, h)
+        gi = np.zeros((M, dh, dw), dtype=np.int64)
+        f = np.zeros((M, dh, 4), dtype=np.int64)
+        wl = np.zeros((M, dw), dtype=np.int64)
+        sx = np.zeros((M, dh, dw), dtype=np.int64)
+        modes = []
+        for i, r in enumerate(recs):
+            sym[i, : len(r["sym"])] = r["sym"]
+            rs[i, : len(r["rs_sym"])] = r["rs_sym"]
+            gi[i] = r["gi"]
+            f[i] = r["f"]
+            wl[i] = r["wl"]
+            sx[i] = r["sidx"]
+            modes.append(r["mode"])
+        out["ver" if is_ver else "hor"] = dict(
+            modes=modes, sym=sym, rs=rs, gi=gi, f=f, wl=wl, sidx=sx
+        )
+    out["lc"] = lc
+    return out
+
+
+def class_tables(w: int, h: int, bit_depth: int):
+    key = (w, h, bit_depth)
+    t = _CLASS_TABLES.get(key)
+    if t is None:
+        t = _build_mode_tables(w, h, bit_depth)
+        _CLASS_TABLES[key] = t
+    return t
+
+
+def _class_strides(w: int, h: int):
+    def stride(d):
+        if d <= 8:
+            return 4
+        if d <= 16:
+            return 8
+        return d  # 32/64-wide blocks sit at their own alignment
+
+    return stride(w), stride(h)
+
+
+def intra_class_list(cfg) -> list[tuple[int, int]]:
+    """Size classes reachable by the intra partitioner (QT to 8 + <=2 MTT
+    levels, min CU 4, max BT/TT 32)."""
+    classes = []
+    for lw in range(2, cfg.log2_ctu_size + 1):
+        for lh in range(2, cfg.log2_ctu_size + 1):
+            w, hh = 1 << lw, 1 << lh
+            if w == hh:
+                classes.append((w, hh))
+            else:
+                if max(w, hh) <= (1 << cfg.log2_max_bt_intra) * 2 and \
+                        cfg.max_mtt_depth_intra > 0:
+                    # rects need at least one MTT split from a square
+                    if max(w, hh) // min(w, hh) <= 8 and max(w, hh) <= 32:
+                        classes.append((w, hh))
+    return classes
 
 
 @dataclass

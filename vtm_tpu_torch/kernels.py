@@ -38,7 +38,10 @@ _SIGNATURES = {
                              _P, _P, _LL, _LL, _I, _P),
     "vtm_deblock_chroma_ver": (_P, _P, _I, _I, _LL, _LL, _P, _P, _P, _P, _P,
                                _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _P),
+    "vtm_deblock_luma_ver_delta": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _P),
     "vtm_sao_apply": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "vtm_sao_apply_ext": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "vtm_alf_classify": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
                          _I, _P, _P, _P),
     "vtm_alf_filter": (_P, _I, _I, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P),
@@ -53,6 +56,9 @@ _SIGNATURES = {
     "vtm_rmd_angular": (_P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _P, _I, _P),
     "vtm_rmd_mip": (_P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P, _I, _P),
     "vtm_rmd_reduce": (_P, _I, _I, _I, _P, _P),
+    "vtm_inv_transform": (_P, _P, _P, _P, _LL, _I, _I, _I, _P),
+    "vtm_inv_transform_s8": (_P, _P, _P, _P, _LL, _I, _I, _I, _P),
+    "vtm_recon_sse": (_P, _P, _P, _P, _P, _LL, _P),
 }
 KERNELS = tuple(_SIGNATURES)
 

@@ -8,6 +8,10 @@ in picture orientation, static flags) and returns the filtered planes.
   kernel (dense over the segment grid: `luma_ver_delta`, `chroma_ver_core`).
 * CUDA tensors: csrc/deblock.cu, one launch per filtered component; HOR
   passes the transposed strides of the planes and maps instead of copying.
+
+`luma_ver_delta` (deblock_kernel.py:68) is also an entry of its own, for
+width sharding: the deltas over a plane extended by 8 columns each side
+(`luma_ver_delta_plain`; csrc/deblock.cu `vtm_deblock_luma_ver_delta`).
 """
 
 from __future__ import annotations
@@ -27,10 +31,12 @@ _TC3 = (6, 4, 2, 0, 0, 0, 0)
 N_MAPS = 17
 
 
-def luma_ver_delta(pad, active, tc, beta, max_p, max_q, no_p, no_q,
-                   bit_depth: int):
+def luma_ver_delta_plain(pad, active, tc, beta, max_p, max_q, no_p, no_q,
+                         bit_depth: int):
     """Delta of the vertical luma edge filter over `pad` (the plane extended
-    by 8 edge-replicated columns each side), as in the jax kernel."""
+    by 8 columns each side: edge-replicated at the picture border, the
+    neighbours' halo under sharding), as in the jax kernel; the deltas that
+    fall into the halo belong to the neighbouring shard."""
     H, Wp = pad.shape
     W = Wp - 16
     H4, W4 = H // 4, W // 4
@@ -331,7 +337,7 @@ def deblock_dir_plain(y, cb, cr, *maps, bit_depth: int, hor: bool,
     c_sh = tuple(m[:, ::step] for m in maps[13:17])
     if has_l:
         pad = edge_pad(y, 0, 8)
-        y = y + luma_ver_delta(pad, *l_maps, bit_depth)[:, 8:-8]
+        y = y + luma_ver_delta_plain(pad, *l_maps, bit_depth)[:, 8:-8]
     if has_cb:
         cb = chroma_ver_core(cb, *c_cb, *c_sh, bit_depth, loop_len, dec_line)
     if has_cr:
@@ -382,6 +388,30 @@ def _chroma_seg_cuda(plane, comp_maps, shared_maps, mv, bit_depth, hor,
     return out
 
 
+def luma_ver_delta_cuda(pad, active, tc, beta, max_p, max_q, no_p, no_q,
+                        bit_depth: int):
+    dev = pad.device
+    KN.check(pad, "pad", torch.int32, dev)
+    H, Wp = pad.shape
+    maps = (active, tc, beta, max_p, max_q, no_p, no_q)
+    for i, m in enumerate(maps):
+        KN.check(m, f"luma map {i}", torch.bool if i in (0, 5, 6) else torch.int32,
+                 dev, (H // 4, (Wp - 16) // 4))
+    delta = torch.empty_like(pad)
+    KN.launch("vtm_deblock_luma_ver_delta", dev, pad.data_ptr(), delta.data_ptr(),
+              H, Wp, *(m.data_ptr() for m in maps), bit_depth)
+    return delta
+
+
+def luma_ver_delta(pad, active, tc, beta, max_p, max_q, no_p, no_q,
+                   bit_depth: int):
+    """Deltas [H, W + 16] of the vertical luma edges of `pad` [H, W + 16]
+    (maps [H / 4, W / 4]): the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    fn = pick(pad, luma_ver_delta_cuda, luma_ver_delta_plain)
+    return fn(pad, active, tc, beta, max_p, max_q, no_p, no_q, bit_depth)
+
+
 def deblock_dir_cuda(y, cb, cr, *maps, bit_depth: int, hor: bool,
                      has_l: bool, has_cb: bool, has_cr: bool, sx: int, sy: int):
     """deblock_dir through csrc/deblock.cu (out of place)."""
@@ -416,7 +446,7 @@ def deblock_luma_ver(plane, active, tc, beta, max_p, max_q, no_p, no_q,
     """All vertical luma edges of `plane` (maps on its 4x4 grid): the
     reference's single-component wrapper (deblock_kernel.py:50), a
     composition of the port's luma filter.  CUDA tensors: the luma kernel of
-    csrc/deblock.cu; CPU tensors: pad and `luma_ver_delta`."""
+    csrc/deblock.cu; CPU tensors: pad and `luma_ver_delta_plain`."""
     maps = (active, tc, beta, max_p, max_q, no_p, no_q)
     H, W = plane.shape
     for i, m in enumerate(maps):
@@ -425,7 +455,8 @@ def deblock_luma_ver(plane, active, tc, beta, max_p, max_q, no_p, no_q,
                  plane.device, (H // 4, W // 4))
     if pick(plane, True, False):
         return _luma_cuda(plane, maps, bit_depth, False)
-    return plane + luma_ver_delta(edge_pad(plane, 0, 8), *maps, bit_depth)[:, 8:-8]
+    return plane + luma_ver_delta_plain(edge_pad(plane, 0, 8), *maps,
+                                        bit_depth)[:, 8:-8]
 
 
 def deblock_chroma_ver(plane, active, tc, beta, large, no_p, no_q, hor_ctb,

@@ -3,11 +3,12 @@
 Counterpart of vtm_tpu/ops/filter_chain.py with the decode mesh off.  The
 order is DecLib::executeLoopFilters (DecLib.cpp:596): LMCS inverse luma
 mapping -> deblocking (VER, HOR) -> SAO -> ALF/CC-ALF.  Every stage's
-parameters are sample-independent and built on the host by vtm_tpu's
-build_* functions; `maps_to_torch` moves them to the device, and
-`chain_body` runs the stages through the port's kernel wrappers (CUDA
-kernels on a GPU, their plain versions on the CPU).  The three planes come back packed into one
-flat int32 tensor, laid out as the reference packs them.
+parameters are sample-independent and built on the host by the build_*
+functions of ops/{deblock,sao,alf}.py; `maps_to_torch` moves them to the
+device, and `chain_body` runs the stages through the port's kernel
+wrappers (CUDA kernels on a GPU, their plain versions on the CPU).  The
+three planes come back packed into one flat int32 tensor, laid out as the
+reference packs them.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def maps_to_torch(dmaps, sao_maps, alf_tables, device):
     """Per-picture filter state as the chain's tensors on `device`, in the
     argument order of run_filter_chain: (dbv, dbh, sao, alf).
 
-    dmaps: [maps_ver, maps_hor] (vtm_tpu.ops.deblock.PicDeblockMaps) or
+    dmaps: [maps_ver, maps_hor] (ops/deblock.py PicDeblockMaps) or
     None -> dbv, dbh: 17 tensors each, or None;
     sao_maps: per-component (type_map, ctu_map, offsets, valid) or None
     -> sao: a list of 3 such 4-tuples of tensors (None where inactive);
@@ -129,7 +130,7 @@ def run_filter_chain(planes, lmcs_lut, dmaps, sao_maps, alf_tables,
     every stage is off.
 
     planes: the picture's numpy planes (int32); the other arguments as in
-    vtm_tpu.ops.filter_chain.run_filter_chain."""
+    the reference's run_filter_chain (vtm_tpu/ops/filter_chain.py)."""
     n_comp = len(planes)
     fl = chain_flags(n_comp, lmcs_lut, dmaps, sao_maps, alf_tables)
     if not any(fl):

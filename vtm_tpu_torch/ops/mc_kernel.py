@@ -9,7 +9,7 @@ replication), and a uniform two-pass FIR gives either the 14-bit
 intermediate (bi) or the final clipped sample (uni).
 
 Why one branch-free form covers VTM's four filter paths
-(InterpolationFilter.cpp filter / filterCopy, mirrored by vtm_tpu.ops.mc):
+(InterpolationFilter.cpp filter / filterCopy, mirrored by ops/mc.py):
 - the H(first, notLast) pass with the phase-0 identity row equals
   filterCopy(first, notLast): (64x - OFFS<<s) >> s == (x<<hr) - OFFS;
 - the V(notFirst, notLast) pass with identity is exact: (64t) >> 6 == t;

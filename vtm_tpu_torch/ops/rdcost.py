@@ -1,17 +1,36 @@
-"""Hadamard SATD of difference blocks: plain torch version + CUDA wrapper.
+"""Distortion function registry — SAD / SSE / Hadamard SATD.
 
-Counterpart of vtm_tpu/ops/rdcost.py:satd_batch_jax (RdCost::xGetHADs
-tiling with the mean-scaled DC term).  Each tile gets an unnormalised 2-D
-Walsh-Hadamard transform; the tile's value is sum |coeff| - dc + (dc >> 2),
-normalised per tile, and the block's SATD is the sum over its tiles:
+Behavioral contract from CommonLib/RdCost.cpp: the HAD family
+(xGetHADs:2819 tiling dispatch; xCalcHADs8x8:2294, 4x4:2166, 2x2:2140,
+16x8/8x16:2385/2526, 8x4/4x8:2659/2742) with the JVET-R0164 mean-scaled
+DC term (TypeDef.h:62).  Each tile applies an unnormalized 2-D Hadamard
+transform to the difference block, sums |coeff| with the DC term scaled
+by 1/4, then normalizes by 2/sqrt(N):
+
+    8x8  -> (s + 2) >> 2          4x4 -> (s + 1) >> 1
+    16x8 -> int(s / sqrt(128) * 2) 8x4 -> int(s / sqrt(32) * 2)
+
+Implemented as matrix products H_h @ D @ H_w^T with Sylvester-ordered
++-1 Hadamard matrices (row 0 = all ones, so [0,0] is the DC term; the
+abs-coefficient sum is invariant to the reference's butterfly ordering).
+
+Two implementations: numpy (scalar encoder paths: satd, satd_batch) and
+the batched form of the device RMD (`satd_batch`'s torch counterpart
+below, `satd_batch_plain` / `satd_batch_cuda`).
+
+The batched form is the counterpart of the reference's jax kernel
+(RdCost::xGetHADs tiling with the mean-scaled DC term).  Each tile gets an
+unnormalised 2-D Walsh-Hadamard transform; the tile's value is
+sum |coeff| - dc + (dc >> 2), normalised per tile, and the block's SATD is
+the sum over its tiles:
 
     8x16 / 16x8 tiles: int32(float32(s) * float32(2 / sqrt(128)))
     4x8 / 8x4 tiles:   int32(float32(s) * float32(2 / sqrt(32)))
     8x8: (s + 2) >> 2    4x4: (s + 1) >> 1    2x2: s    otherwise SAD
 
-The float32 product truncates toward zero, as jax's astype(int32) does;
-numpy's float64 `satd_batch` differs from it by one on some 16x8 / 8x4
-tiles, so the jax function is the one both versions here equal.
+The float32 product truncates toward zero, as the device kernel of the
+reference does; the float64 `satd_batch` differs from it by one on some
+16x8 / 8x4 tiles, so the batched versions keep float32.
 
 * CPU tensors: `satd_batch_plain`, exact-integer butterflies (never a
   float or integer matmul: on the card a float32 matmul may run as TF32,
@@ -29,6 +48,104 @@ import torch
 
 from vtm_tpu_torch import kernels as KN
 from vtm_tpu_torch.ops import pick
+
+_SQRT_NORM_16x8 = 2.0 / math.sqrt(16.0 * 8)
+_SQRT_NORM_8x4 = 2.0 / math.sqrt(4.0 * 8)
+
+
+def _hadamard(n: int) -> np.ndarray:
+    h = np.array([[1]], dtype=np.int64)
+    while h.shape[0] < n:
+        h = np.block([[h, h], [h, -h]])
+    return h
+
+
+_H = {n: _hadamard(n) for n in (2, 4, 8, 16)}
+
+
+def _tile_satd_sum(d: np.ndarray, th: int, tw: int) -> np.ndarray:
+    """Mean-scaled abs-coefficient sum per (th, tw) tile.
+
+    d: (..., th, tw) int64 difference tiles -> (...,) sums (pre-norm).
+    """
+    m = _H[th] @ d @ _H[tw].T
+    a = np.abs(m)
+    s = a.sum(axis=(-2, -1))
+    dc = a[..., 0, 0]
+    return s - dc + (dc >> 2)
+
+
+def _tiles(d: np.ndarray, th: int, tw: int) -> np.ndarray:
+    h, w = d.shape[-2:]
+    lead = d.shape[:-2]
+    t = d.reshape(*lead, h // th, th, w // tw, tw)
+    return np.moveaxis(t, -3, -2)  # (..., h/th, w/tw, th, tw)
+
+
+def satd(org: np.ndarray, cur: np.ndarray) -> int:
+    """RdCost::xGetHADs — full-block Hadamard SATD (mean-scaled)."""
+    d = org.astype(np.int64) - cur.astype(np.int64)
+    h, w = d.shape
+    if w > h and h % 8 == 0 and w % 16 == 0:
+        s = _tile_satd_sum(_tiles(d, 8, 16), 8, 16)
+        return int((s.astype(np.float64) * _SQRT_NORM_16x8).astype(np.int64).sum())
+    if w < h and w % 8 == 0 and h % 16 == 0:
+        s = _tile_satd_sum(_tiles(d, 16, 8), 16, 8)
+        return int((s.astype(np.float64) * _SQRT_NORM_16x8).astype(np.int64).sum())
+    if w > h and h % 4 == 0 and w % 8 == 0:
+        s = _tile_satd_sum(_tiles(d, 4, 8), 4, 8)
+        return int((s.astype(np.float64) * _SQRT_NORM_8x4).astype(np.int64).sum())
+    if w < h and w % 4 == 0 and h % 8 == 0:
+        s = _tile_satd_sum(_tiles(d, 8, 4), 8, 4)
+        return int((s.astype(np.float64) * _SQRT_NORM_8x4).astype(np.int64).sum())
+    if h % 8 == 0 and w % 8 == 0:
+        s = _tile_satd_sum(_tiles(d, 8, 8), 8, 8)
+        return int(((s + 2) >> 2).sum())
+    if h % 4 == 0 and w % 4 == 0:
+        s = _tile_satd_sum(_tiles(d, 4, 4), 4, 4)
+        return int(((s + 1) >> 1).sum())
+    if h % 2 == 0 and w % 2 == 0:
+        s = _tile_satd_sum(_tiles(d, 2, 2), 2, 2)
+        return int(s.sum())
+    return int(np.abs(d).sum())
+
+
+def satd_batch(org: np.ndarray, cur: np.ndarray) -> np.ndarray:
+    """Batched SATD: org/cur (..., h, w) -> (...,) int64, same tiling."""
+    d = org.astype(np.int64) - cur.astype(np.int64)
+    h, w = d.shape[-2:]
+    if w > h and h % 8 == 0 and w % 16 == 0:
+        s = _tile_satd_sum(_tiles(d, 8, 16), 8, 16)
+        return (s.astype(np.float64) * _SQRT_NORM_16x8).astype(np.int64).sum(axis=(-2, -1))
+    if w < h and w % 8 == 0 and h % 16 == 0:
+        s = _tile_satd_sum(_tiles(d, 16, 8), 16, 8)
+        return (s.astype(np.float64) * _SQRT_NORM_16x8).astype(np.int64).sum(axis=(-2, -1))
+    if w > h and h % 4 == 0 and w % 8 == 0:
+        s = _tile_satd_sum(_tiles(d, 4, 8), 4, 8)
+        return (s.astype(np.float64) * _SQRT_NORM_8x4).astype(np.int64).sum(axis=(-2, -1))
+    if w < h and w % 4 == 0 and h % 8 == 0:
+        s = _tile_satd_sum(_tiles(d, 8, 4), 8, 4)
+        return (s.astype(np.float64) * _SQRT_NORM_8x4).astype(np.int64).sum(axis=(-2, -1))
+    if h % 8 == 0 and w % 8 == 0:
+        return ((_tile_satd_sum(_tiles(d, 8, 8), 8, 8) + 2) >> 2).sum(axis=(-2, -1))
+    if h % 4 == 0 and w % 4 == 0:
+        return ((_tile_satd_sum(_tiles(d, 4, 4), 4, 4) + 1) >> 1).sum(axis=(-2, -1))
+    if h % 2 == 0 and w % 2 == 0:
+        return _tile_satd_sum(_tiles(d, 2, 2), 2, 2).sum(axis=(-2, -1))
+    return np.abs(d).sum(axis=(-2, -1))
+
+
+def sad(org: np.ndarray, cur: np.ndarray) -> int:
+    return int(np.abs(org.astype(np.int64) - cur.astype(np.int64)).sum())
+
+
+def sse(org: np.ndarray, cur: np.ndarray) -> int:
+    d = org.astype(np.int64) - cur.astype(np.int64)
+    return int((d * d).sum())
+
+
+# ---------------------------------------------------------------------------
+# batched form (device RMD)
 
 # Tile kinds in RdCost::xGetHADs's order of preference, as (rows, cols);
 # csrc/satd.cuh numbers them the same way.
@@ -83,7 +200,7 @@ def _tile_sums(d: torch.Tensor, th: int, tw: int) -> torch.Tensor:
 
 
 def satd_batch_plain(diff: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """diff int32 (..., h, w) -> (...,) int32 SATD, as satd_batch_jax."""
+    """diff int32 (..., h, w) -> (...,) int32 SATD of each block."""
     kind = satd_kind(h, w)
     if kind == SAD:
         return diff.abs().sum(dim=(-2, -1), dtype=torch.int32)

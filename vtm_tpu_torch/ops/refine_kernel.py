@@ -18,7 +18,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from vtm_tpu.common import rom
+from vtm_tpu_torch.common import rom
 from vtm_tpu_torch import kernels as KN
 from vtm_tpu_torch.ops import clamp_index, mul32, pick, shl32
 

@@ -9,7 +9,7 @@ decisions, SAO edge classes and ALF classes all take several values.
 Active deblocking edges are 16 samples apart (8 in subsampled chroma), as
 the max-filter-length rules keep real edges: no sample is written by two
 edges.  The MC, DMVR, FIR and BDOF cases use VTM's own filter tables
-(vtm_tpu.ops.mc) and put windows across every plane edge.
+(ops/mc.py) and put windows across every plane edge.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import os
 
 import numpy as np
 
-from vtm_tpu.ops import mc as MC
+from vtm_tpu_torch.ops import mc as MC
 from vtm_tpu_torch.ops import alf_kernel as AK
 
 # (sx, sy) of each chroma format
@@ -232,8 +232,8 @@ TESTDATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 
 def read_source(name: str, w: int, h: int, frame: int = 0, bit_depth: int = 8):
     """Frame `frame` of testdata/<name>.yuv (4:2:0) as int32 planes."""
-    from vtm_tpu.common.types import ChromaFormat
-    from vtm_tpu.utils.yuv_io import YuvFormat, read_yuv
+    from vtm_tpu_torch.common.types import ChromaFormat
+    from vtm_tpu_torch.utils.yuv_io import YuvFormat, read_yuv
 
     fmt = YuvFormat(w, h, ChromaFormat.YUV420, bit_depth)
     frames = read_yuv(os.path.join(TESTDATA, f"{name}.yuv"), fmt, frame + 1)
@@ -279,7 +279,7 @@ def rmd_source(rng, h: int, w: int, bit_depth: int) -> np.ndarray:
 def rmd_positions(rng, n: int, pic_w: int, pic_h: int, w: int, h: int):
     """n block positions (xs, ys) of a w x h class on a pic_w x pic_h
     picture, on the class's grid and including both corners."""
-    from vtm_tpu.encoder.rmd_tpu import _class_strides
+    from vtm_tpu_torch.encoder.rmd import _class_strides
 
     sx, sy = _class_strides(w, h)
     xs = rng.integers(0, (pic_w - w) // sx + 1, n) * sx
@@ -296,7 +296,7 @@ def satd_f32_cases(rng, th: int, tw: int, bit_depth: int, n_try: int = 40_000):
     (about one tile in a thousand), found among n_try random tiles."""
     import math
 
-    from vtm_tpu.ops import rdcost
+    from vtm_tpu_torch.ops import rdcost
 
     maxv = (1 << bit_depth) - 1
     d = rng.integers(-maxv, maxv + 1, size=(n_try, th, tw)).astype(np.int64)
