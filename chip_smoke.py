@@ -9,7 +9,9 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
 1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
    no CUDA means exit 1 with no result;
 2. build the CUDA kernels of vtm_tpu_torch/csrc from the checkout (nvcc,
-   sm_90a, one process per source, in parallel);
+   sm_90a, one process per source, in parallel), and print each compiled
+   kernel's registers and spill bytes (ptxas -v; a template instantiation
+   with its arguments); an RMD kernel that spills fails;
 3. each kernel against its plain torch version, exactly:
    - the filter kernels on the real chain inputs of POC 0 of
      testdata/ai_full_hd1080_qp37.bit (1920x1080 4:2:0 8-bit, LMCS +
@@ -24,7 +26,10 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
      10-bit extremes), 1920x1080 samples per call;
    - the three RMD kernels on every block-size class of a 1920x1080 picture
      mirror-tiled from testdata/bq416_416x240_420_8.yuv (MIP on, 888,628
-     positions), and on a numpy-seeded 10-bit 256x192 picture;
+     positions; per class: positions, operations, bound, kernel and plain
+     ms, and each kernel's threads, shared bytes, resident blocks an SM,
+     positions a block, registers and spills), and on numpy-seeded 10-bit
+     256x192 and 1920x1080 pictures;
    - the two inverse transforms (int32 MACs; int8 tensor cores) on batches
      the size of a 1920x1080 plane, every block size and kind pair, 8- and
      10-bit, each against the plain version and the two against each
@@ -63,6 +68,15 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    counts, without the decodes that check their streams, prove that the
    encoder's RMD, deblocking, SAO and ALF ran through the kernels;
 7. one JSON line of per-kernel results, then the device line, last.
+
+    python3 chip_smoke.py --versus DIR
+
+instead times this checkout's RMD kernels against another build of
+csrc/rmd.cu (DIR holds rmd.cu, satd.cuh and common.cuh of another commit,
+e.g. from `git show c2c0a90:vtm_tpu_torch/csrc/rmd.cu`; DIR is built into
+DIR/libversus_rmd.so with the entry points renamed), class by class on the
+1080p source, in one process on one card, in turns (other, this, this,
+other), each result equal to this checkout's.
 """
 
 from __future__ import annotations
@@ -70,6 +84,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -167,6 +182,42 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def demangle(sym: str) -> str:
+    """An Itanium-mangled kernel name with int template arguments, as
+    `name<4, 8>` (enough for this repo's kernels)."""
+    m = re.match(r"_Z(\d+)(\w+)", sym)
+    if not m:
+        return sym
+    n, rest = int(m.group(1)), m.group(2)
+    name, tail = rest[:n], rest[n:]
+    args = re.match(r"I((?:Li\d+E)+)E", tail)
+    if args:
+        name += "<" + ", ".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+    return name
+
+
+def ptxas_report(diag: str) -> dict:
+    """{kernel: {registers, spill_stores, spill_loads}} from nvcc -Xptxas -v."""
+    rows, prop, entry = {}, None, None
+    for line in diag.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = demangle(m.group(1))
+            rows[entry] = {}
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            prop = demangle(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and prop in rows:
+            rows[prop].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry in rows:
+            rows[entry]["registers"] = int(m.group(1))
+    return rows
+
+
 def cuda_ms(torch, fn, iters: int = 10) -> float:
     """Mean device time of fn() in ms (CUDA events, after up to two
     warm-up calls)."""
@@ -222,8 +273,9 @@ class KernelCheck:
 
     def __init__(self, torch):
         self.torch = torch
+        self.last = None  # the last timed comparison: ms, plain_ms, bytes, ops
         self.rows = {k: dict(max_abs_err=0, ms=0.0, plain_ms=0.0, bytes=0,
-                             ops=0.0, peak=INT32_OPS_PER_S)
+                             ops=0.0, peak=INT32_OPS_PER_S, timed=0)
                      for k in KERNEL_INFO}
 
     def compare(self, kernel: str, label: str, cuda_fn, plain_fn,
@@ -249,6 +301,8 @@ class KernelCheck:
             row["bytes"] += nbytes(ins, got)
             row["ops"] += ops
             row["peak"] = peak
+            row["timed"] += 1
+            self.last = dict(ms=ms, plain_ms=pms, bytes=nbytes(ins, got), ops=ops)
             msg += f", kernel {ms:.4f} ms, plain {pms:.4f} ms"
         if err or not quiet:
             print(msg, flush=True)
@@ -539,15 +593,19 @@ def check_satd(chk: KernelCheck, dev, seed: int = 11):
                     lambda: RC.satd_batch_plain(d, h, w))
 
 
-def check_rmd(torch, chk: KernelCheck, src, bd: int, label: str, timed: bool):
-    """The three RMD kernels against their plain versions on every class of
-    the source picture `src` (MIP on): the angular and the MIP columns, and
-    the reduction of the plain table."""
-    import numpy as np
+def rmd_ops(RC, w: int, h: int, P: int, ncols: int) -> int:
+    """Operations of an RMD class's columns at least: a prediction (4-tap:
+    4 ops) and its SATD per sample, column and position."""
+    return P * ncols * h * w * (4 + satd_ops(RC, h, w))
 
-    from vtm_tpu_torch.encoder import rmd as RMD
+
+def rmd_jobs(RMD, src, bd: int):
+    """(w, h, consts, srcpad, xs, ys) of every class of picture `src` on the
+    card, MIP on, positions in the main path's order."""
+    import numpy as np
+    import torch
+
     from vtm_tpu_torch.encoder.enc_lib import EncoderConfig
-    from vtm_tpu_torch.ops import rdcost as RC
     from vtm_tpu_torch.ops import upload
 
     dev = torch.device("cuda")
@@ -555,36 +613,160 @@ def check_rmd(torch, chk: KernelCheck, src, bd: int, label: str, timed: bool):
     cfg = EncoderConfig(width=w_pic, height=h_pic, bit_depth=bd, mip=True)
     srcpad = np.pad(src.astype(np.int32), ((1, RMD.PAD_R), (1, RMD.PAD_R)),
                     mode="edge")
-    total = 0
     for w, h in RMD.intra_class_list(cfg):
         sx, sy = RMD._class_strides(w, h)
         gx, gy = np.meshgrid(np.arange(0, w_pic - w + 1, sx),
                              np.arange(0, h_pic - h + 1, sy))
         sp, xs, ys = upload([srcpad, gx.ravel(), gy.ravel()], dev)
-        c = RMD.class_consts(w, h, bd, True, dev)
+        yield w, h, RMD.class_consts(w, h, bd, True, dev), sp, xs, ys
+
+
+def check_rmd(torch, chk: KernelCheck, src, bd: int, label: str, timed: bool,
+              ptxas: dict | None = None):
+    """The three RMD kernels against their plain versions on every class of
+    the source picture `src` (MIP on): the angular and the MIP columns, and
+    the reduction of the plain table.  Timed: a line per class with its
+    positions, operations, bound, times and launch shape (`ptxas`: the
+    registers and spills of phase 2)."""
+    from vtm_tpu_torch.encoder import rmd as RMD
+    from vtm_tpu_torch.ops import rdcost as RC
+
+    total, per_class = 0, []
+    for w, h, c, sp, xs, ys in rmd_jobs(RMD, src, bd):
         P = xs.shape[0]
         total += P
-        out = torch.empty((P, c.ncols), dtype=torch.int32, device=dev)
+        out = torch.empty((P, c.ncols), dtype=torch.int32, device=sp.device)
         tag = f"{label} {w}x{h}, {P} positions"
         kw = dict(timed=timed, iters=2)
-        # a prediction (4-tap: 4 ops) and its SATD per sample, mode and position
-        per = h * w * (4 + satd_ops(RC, h, w))
         ang = chk.compare(
             "vtm_rmd_angular", tag,
             lambda: RMD.angular_costs_cuda(sp, xs, ys, c, out)[:, :RMD.N_ANG],
             lambda: RMD.angular_costs_plain(sp, xs, ys, c, w, h, bd), **kw,
-            ins=(sp, xs, ys), ops=P * RMD.N_ANG * per)
+            ins=(sp, xs, ys), ops=rmd_ops(RC, w, h, P, RMD.N_ANG))
+        t_ang = chk.last
         mip = chk.compare(
             "vtm_rmd_mip", tag,
             lambda: RMD.mip_costs_cuda(sp, xs, ys, c, out)[:, RMD.N_ANG:],
             lambda: RMD.mip_costs_plain(sp, xs, ys, c, w, h, bd), **kw,
-            ins=(sp, xs, ys), ops=P * (c.ncols - RMD.N_ANG) * per)
+            ins=(sp, xs, ys), ops=rmd_ops(RC, w, h, P, c.ncols - RMD.N_ANG))
+        t_mip = chk.last
         full = torch.cat([ang, mip], dim=1)
         chk.compare("vtm_rmd_reduce", tag,
                     lambda: RMD.reduce_cuda(full, c.n_mip),
                     lambda: RMD.reduce_plain(full, c.n_mip), **kw,
                     ins=full, ops=2 * full.numel())
+        if timed:
+            per_class.append((w, h, P, RMD.kernel_config(w, h), t_ang, t_mip))
     print(f"RMD [{label}]: {total} positions in all classes", flush=True)
+    for w, h, P, cfg, *times in per_class:
+        parts = []
+        for kern, t in zip(("angular", "mip"), times):
+            bound, by = max((t["bytes"] / BYTES_PER_S * 1e3, "bytes"),
+                            (t["ops"] / INT32_OPS_PER_S * 1e3, "operations"))
+            k = cfg[kern]
+            reg = (ptxas or {}).get(f"rmd_{kern}_kernel<{w}, {h}>", {})
+            parts.append(
+                f"{kern}: {t['ops']:.6g} ops, bound {bound:.6f} ms ({by}), kernel "
+                f"{t['ms']:.6f} ms ({100 * bound / t['ms']:.2f} % of bound), plain "
+                f"{t['plain_ms']:.6f} ms; {k['threads']} threads, {k['smem_bytes']} "
+                f"shared bytes, {k['blocks_per_sm']} blocks/SM, "
+                f"{k['positions_per_block']} positions/block, {k['registers']} "
+                f"registers, {reg.get('spill_stores', '?')}/{reg.get('spill_loads', '?')} "
+                f"bytes spill stores/loads")
+        print(f"RMD class {w}x{h} [{label}]: {P} positions; " + "; ".join(parts),
+              flush=True)
+
+
+def versus(torch, other: str) -> int:
+    """This checkout's vtm_rmd_angular and vtm_rmd_mip against the build of
+    another rmd.cu in directory `other`, per class of the 1080p source, in
+    turns; prints a line per class and the sums.  The other build gets
+    the packed per-sample table of the kernels before the compact one
+    (commit c2c0a90: (M, dh, dw, col0, offsets of cidx, f, wl, scidx) per
+    group, then the arrays)."""
+    import ctypes
+
+    from vtm_tpu_torch import kernels as KN
+    from vtm_tpu_torch import testing as T
+    from vtm_tpu_torch.encoder import rmd as RMD
+    from vtm_tpu_torch.ops import rdcost as RC
+
+    print(card_line(), flush=True)
+    for name, r in ptxas_report(KN.build(force=True, ptxas_verbose=True)).items():
+        if name.startswith("rmd_"):
+            print(f"  ptxas: {name}: {r}", flush=True)
+    names = ("vtm_rmd_angular", "vtm_rmd_mip", "vtm_rmd_reduce")
+    lib_path = os.path.join(other, "libversus_rmd.so")
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    res = subprocess.run([nvcc, *KN.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
+                          *(f"-D{n}=versus_{n[4:]}" for n in names), "-o", lib_path,
+                          os.path.join(other, "rmd.cu")],
+                         capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"nvcc failed on {other}/rmd.cu:\n{res.stderr}")
+    for name, r in ptxas_report(res.stderr).items():
+        print(f"  ptxas [{other}]: {name}: {r}", flush=True)
+    lib = ctypes.CDLL(lib_path)
+    for n in names:
+        fn = getattr(lib, f"versus_{n[4:]}")
+        fn.argtypes = list(KN._SIGNATURES[n])
+        fn.restype = ctypes.c_int
+
+    def packed(c):
+        head, parts, pos, col = [0] * 16, [], 16, 4
+        for gi, g in enumerate(c.groups):
+            head[8 * gi:8 * gi + 4] = (len(g["modes"]), g["dh"], g["dw"], col)
+            for k, name in enumerate(("cidx", "f", "wl", "scidx")):
+                head[8 * gi + 4 + k] = pos
+                parts.append(g[name].reshape(-1))
+                pos += parts[-1].numel()
+            col += len(g["modes"])
+        return torch.cat([torch.tensor(head, dtype=torch.int32, device="cuda")] + parts)
+
+    stream = torch.cuda.current_stream().cuda_stream
+    sums = {k: [0.0, 0.0, 0.0] for k in ("angular", "mip")}  # other, this, ops
+    for w, h, c, sp, xs, ys in rmd_jobs(RMD, T.hd_source()[0], 8):
+        P = xs.shape[0]
+        tab = packed(c)
+        mine = torch.empty((P, c.ncols), dtype=torch.int32, device="cuda")
+        theirs = torch.full_like(mine, -1)
+        pos = (sp.data_ptr(), *sp.shape, xs.data_ptr(), ys.data_ptr(), P)
+        runs = {
+            "angular": (lambda: RMD.angular_costs_cuda(sp, xs, ys, c, mine),
+                        lambda: lib.versus_rmd_angular(*pos, tab.data_ptr(), w, h, 8,
+                                                       theirs.data_ptr(), c.ncols, stream),
+                        RMD.N_ANG),
+            "mip": (lambda: RMD.mip_costs_cuda(sp, xs, ys, c, mine),
+                    lambda: lib.versus_rmd_mip(*pos, c.wadj.data_ptr(), c.n_mip, w, h, 8,
+                                               theirs.data_ptr(), c.ncols, stream),
+                    c.ncols - RMD.N_ANG)}
+        line = []
+        for kern, (this_fn, other_fn, ncols) in runs.items():
+            if other_fn() != 0:
+                raise RuntimeError(f"{other}: {kern} {w}x{h} refused")
+            t = [cuda_ms(torch, f, 5) for f in (other_fn, this_fn, this_fn, other_fn)]
+            o_ms, t_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+            ops = rmd_ops(RC, w, h, P, ncols)
+            bound = ops / INT32_OPS_PER_S * 1e3
+            for k, v in enumerate((o_ms, t_ms, ops)):
+                sums[kern][k] += v
+            line.append(f"{kern} other {o_ms:.6f} ms, this {t_ms:.6f} ms "
+                        f"({o_ms / t_ms:.2f}x; turns {', '.join(f'{x:.6f}' for x in t)}), "
+                        f"op bound {bound:.6f} ms ({100 * bound / t_ms:.2f} % this, "
+                        f"{100 * bound / o_ms:.2f} % other)")
+        torch.cuda.synchronize()
+        err = max_err(torch, mine, theirs)
+        if err:
+            raise AssertionError(f"{w}x{h}: this build and {other} differ by {err}")
+        print(f"versus {w}x{h}, {P} positions: " + "; ".join(line) + ", outputs equal",
+              flush=True)
+    for kern, (o_ms, t_ms, ops) in sums.items():
+        bound = ops / INT32_OPS_PER_S * 1e3
+        print(f"versus sum {kern}: other {o_ms:.6f} ms, this {t_ms:.6f} ms "
+              f"({o_ms / t_ms:.2f}x), op bound {bound:.6f} ms ({100 * bound / t_ms:.2f} "
+              f"% this, {100 * bound / o_ms:.2f} % other)", flush=True)
+    print(card_line(), flush=True)
+    return 0
 
 
 def check_transforms(torch, chk: KernelCheck, dev, seed: int = 17):
@@ -826,7 +1008,8 @@ def check_own_decode(Decoder, name: str, bits: bytes, recon) -> None:
 def encode_hd(torch, KN, Decoder, IntraEncoder):
     """One 1920x1080 picture (mirror-tiled bq416) at QP 37 with bench.py's
     configuration on the card; decoded hash-exact by the port.  Prints
-    s/picture and its split: the host's wait for FrameRMD's results, the
+    s/picture and its split: the host's wait for FrameRMD's results (the one
+    fetch of the reductions, not the cached lookups after it), the
     deblocking stage, the rest (host RD search, CABAC); and FrameRMD's span
     on the device timeline (CUDA events around its construction: uploads,
     kernels and the gaps while the host prepares the next class).  Returns
@@ -836,7 +1019,7 @@ def encode_hd(torch, KN, Decoder, IntraEncoder):
     from vtm_tpu_torch.encoder.enc_lib import EncoderConfig
     from vtm_tpu_torch.ops import deblock as DBP
 
-    spans = {"rmd_events": [], "rmd_wait": 0.0, "deblock": 0.0}
+    spans = {"rmd_events": [], "rmd_wait": 0.0, "rmd_calls": 0, "deblock": 0.0}
     real_rmd, real_db = RMD.FrameRMD, DBP.deblock_picture
 
     class TimedFrameRMD(real_rmd):
@@ -849,6 +1032,10 @@ def encode_hd(torch, KN, Decoder, IntraEncoder):
             spans["rmd_events"].append((start, end))
 
         def _force_reduced(self):
+            # every stats() call comes here; only the first fetches
+            spans["rmd_calls"] += 1
+            if self._stats is not None:
+                return self._stats
             t0 = time.perf_counter()
             out = super()._force_reduced()
             spans["rmd_wait"] += time.perf_counter() - t0
@@ -877,9 +1064,11 @@ def encode_hd(torch, KN, Decoder, IntraEncoder):
     rest = dt - spans["rmd_wait"] - spans["deblock"]
     print(f"encode 1920x1080 (bq416 mirror-tiled) QP 37: {len(bits)} bytes, "
           f"decoded hash-exact; {dt:.4f} s/picture = FrameRMD wait "
-          f"{spans['rmd_wait']:.4f} s + deblock {spans['deblock']:.4f} s + host "
-          f"RD and CABAC {rest:.4f} s; FrameRMD span on the device timeline "
-          f"{rmd_ms:.4f} ms (CUDA events: uploads, kernels, host gaps)", flush=True)
+          f"{spans['rmd_wait']:.4f} s (its one fetch of the reductions; "
+          f"{spans['rmd_calls']} stats lookups in all) + deblock "
+          f"{spans['deblock']:.4f} s + host RD and CABAC {rest:.4f} s; FrameRMD "
+          f"span on the device timeline {rmd_ms:.4f} ms (CUDA events: uploads, "
+          f"kernels, host gaps)", flush=True)
     return {k: after[k] - before[k] for k in after}
 
 
@@ -936,12 +1125,13 @@ def main() -> int:
     KN.library()
     print(f"built {os.path.relpath(KN.LIB_PATH, ROOT)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for line in diag.splitlines():
-        entry = re.search(r"entry function '_Z(\d+)(\w+)'", line)
-        if entry:
-            print("  ptxas:", entry.group(2)[:int(entry.group(1))])
-        elif "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    ptxas = ptxas_report(diag)
+    for name, r in ptxas.items():
+        print(f"  ptxas: {name}: {r}", flush=True)
+    spills = [n for n, r in ptxas.items()
+              if n.startswith("rmd_") and (r.get("spill_stores") or r.get("spill_loads"))]
+    if spills:
+        raise AssertionError(f"RMD kernels spill: {spills}")
 
     # 3. kernels against their plain versions
     chk = KernelCheck(torch)
@@ -964,9 +1154,12 @@ def main() -> int:
     check_inter_recorded(chk, capture_inter_inputs(MK, RK, Decoder), MK, RK)
     check_inter_1080p(chk, MK, RK, dev)
     check_satd(chk, dev)
-    check_rmd(torch, chk, T.hd_source()[0], 8, "1080p bq416 mirror-tiled", timed=True)
+    check_rmd(torch, chk, T.hd_source()[0], 8, "1080p bq416 mirror-tiled", timed=True,
+              ptxas=ptxas)
     check_rmd(torch, chk, T.rmd_source(np.random.default_rng(13), 192, 256, 10),
               10, "10-bit 256x192 seeded", timed=False)
+    check_rmd(torch, chk, T.rmd_source(np.random.default_rng(19), 1080, 1920, 10),
+              10, "10-bit 1920x1080 seeded", timed=False)
     check_transforms(torch, chk, dev)
     check_shard_entries(torch, chk, pic0, dev)
 
@@ -1051,6 +1244,14 @@ def main() -> int:
                             max_abs_err=row["max_abs_err"], ms=row["ms"],
                             plain_ms=row["plain_ms"], bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=None))
+    # what a redesign of each kernel could save on the main paths at most:
+    # launches x (time - bound) per timed call
+    gaps = sorted(((k["launches"] * (k["ms"] - k["bound_ms"]) / chk.rows[k["name"]]["timed"],
+                    k["name"]) for k in kernels if chk.rows[k["name"]]["timed"]),
+                  reverse=True)
+    print("redesign order, launches x (ms - bound ms) per timed call: " + ", ".join(
+        f"{name} {gap:.6f} ms ({chk.rows[name]['timed']} timed calls)" for gap, name in gaps),
+        flush=True)
     torch.cuda.synchronize()
     print(card_line())
     print(json.dumps({"kernels": kernels}))
@@ -1061,4 +1262,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--versus":
+        import torch
+
+        if not torch.cuda.is_available():
+            print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+            sys.exit(1)
+        sys.path.insert(0, ROOT)
+        sys.exit(versus(torch, sys.argv[2]))
     sys.exit(main())

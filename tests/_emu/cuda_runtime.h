@@ -7,6 +7,11 @@
 // static __shared__ array becomes a function-level static, and the dynamic
 // one (`extern __shared__ int sm[]`, which build.py removes) one global
 // buffer.
+// Warps (one-dimensional blocks): each aligned group of 32 threads has a
+// std::barrier of its own for __syncwarp(); a shuffle writes the lane's value
+// into its exchange slot, waits on the warp's barrier, reads the source
+// lane's slot and waits again, so every lane of the warp must take part, as
+// the kernels' full-mask shuffles require.
 // Stream and memory calls act at once on host memory.  Device intrinsics map
 // to their host meanings: __fmul_rn to one float product (volatile, built
 // with -ffp-contract=off), __float2int_rz to C truncation.
@@ -18,6 +23,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <functional>
+#include <memory>
 #include <thread>
 #include <vector>
 #define __global__
@@ -26,22 +32,44 @@
 #define __forceinline__ inline
 #define __shared__ static  // one copy for the block that runs
 #define __constant__
+#define __launch_bounds__(...)
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct uint3 { unsigned x, y, z; };
 inline thread_local uint3 threadIdx;
 inline thread_local uint3 blockIdx;
 inline dim3 blockDim, gridDim;
 inline std::barrier<>* emu_bar = nullptr;
+inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp_bars;
+inline int emu_lane_slot[1024];
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp_bars[threadIdx.x / 32]->arrive_and_wait(); }
+inline int emu_shfl(int v, int src_lane) {
+  const unsigned base = threadIdx.x & ~31u;
+  emu_lane_slot[threadIdx.x] = v;
+  __syncwarp();
+  const int r = emu_lane_slot[base + src_lane];
+  __syncwarp();
+  return r;
+}
+inline int __shfl_xor_sync(unsigned, int v, int mask, int = 32) {
+  return emu_shfl(v, (threadIdx.x & 31) ^ mask);
+}
+inline int __shfl_sync(unsigned, int v, int src, int width = 32) {
+  return emu_shfl(v, (threadIdx.x & 31 & ~(width - 1)) + src % width);
+}
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaMemcpyDeviceToDevice = 3,
        cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+struct cudaFuncAttributes { int numRegs = 0; size_t localSizeBytes = 0; };
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(int) { return "emu"; }
 inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) { memset(p, v, n); return 0; }
 inline int cudaMemcpyAsync(void* d, const void* s, size_t n, int, cudaStream_t) { memcpy(d, s, n); return 0; }
 inline int cudaFuncSetAttribute(const void*, int, int) { return 0; }
+inline int cudaFuncGetAttributes(cudaFuncAttributes* a, const void*) { *a = {}; return 0; }
+template <class F>
+int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) { *n = 1; return 0; }
 using std::max; using std::min; using std::abs;
 inline int __clz(int v) { return v == 0 ? 32 : __builtin_clz((unsigned)v); }
 inline int __float2int_rz(float f) { return (int)f; }
@@ -54,6 +82,9 @@ template <class K, class... A>
 void emu_launch(K kernel, dim3 grid, dim3 block, size_t, A... args) {
   blockDim = block; gridDim = grid;
   unsigned n = block.x * block.y * block.z;
+  emu_warp_bars.clear();
+  for (unsigned w = 0; w < n; w += 32)
+    emu_warp_bars.push_back(std::make_unique<std::barrier<>>(std::min(32u, n - w)));
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       std::barrier<> bar(n);

@@ -141,6 +141,21 @@ def test_class_costs_plain_10bit(RRMD):
         np.testing.assert_array_equal(red, ref_red)
 
 
+@pytest.mark.parametrize("pattern", ["max", "min", "checker"])
+def test_class_costs_plain_10bit_extremes(RRMD, pattern):
+    """10-bit sources at the ends of the range: all 1023 (every prediction
+    exact), all 0, and a 0 / 1023 checkerboard (the largest differences,
+    filter taps and PDPC terms a 10-bit picture gives)."""
+    maxv = (1 << 10) - 1
+    yy, xx = np.mgrid[0:PIC_H, 0:PIC_W]
+    src = {"max": np.full((PIC_H, PIC_W), maxv), "min": np.zeros((PIC_H, PIC_W)),
+           "checker": ((yy + xx) & 1) * maxv}[pattern].astype(np.int32)
+    for w, h in ((4, 4), (8, 4), (16, 8), (8, 32), (32, 32)):
+        (ref_out, ref_red), (out, red) = _class_case(RRMD, w, h, 10, src, 6)
+        np.testing.assert_array_equal(out, ref_out)
+        np.testing.assert_array_equal(red, ref_red)
+
+
 def _frame_rmd_pair(RRMD, planes, cfg):
     ref = RRMD.FrameRMD(planes[0], cfg, 1.0)
     got = RMD.FrameRMD(planes[0], cfg, 1.0, device="cpu")

@@ -5,50 +5,74 @@
 // products on the TPU's matrix unit) and took its SATD with
 // rdcost.satd_batch_jax.  Three kernels compute the same table here:
 //
-//   rmd_angular_kernel  one block per position.  The block builds the
+//   rmd_angular_kernel<W, H>  the 67 regular modes.  A block takes NP
+//     neighbouring positions of the list (x fastest, so their source windows
+//     share cache lines) and stages, in shared memory, the class's compact
+//     mode tables (encoder/rmd.py:_compact_tables) and per position the
 //     reference buffer C = [Tu | Lu | Tf | Lf | 0] (edge-padded source row
-//     and column, and their [1 2 1] filtered copies), the source block and
-//     the predictions of planar, DC and exact HOR / VER with their PDPC in
-//     shared memory; each thread then takes one (mode column, SATD tile)
-//     pair (angular modes predicted in registers from the class tables:
-//     4-tap filter, (acc + 32) >> 6, clip, PDPC with no clip after it),
-//     takes the tile's SATD against the source (satd.cuh) and adds it to
-//     the column's sum.  The hor group predicts the transposed block against
-//     the transposed source, as the reference does.
-//   rmd_mip_kernel  one block per position: boundary downsampling, the
-//     reduced prediction of every (MIP mode, transpose) pair, then its
-//     horizontal and vertical upsampling, all in shared memory (216 KB for
-//     64x64, within the card's 227 KB), then per (pair, tile) the SATD.
+//     and column, their [1 2 1] filtered copies, a zero slot), the DC value
+//     (a warp reduction) and the source block.  Then warps take columns: a
+//     lane predicts one row of a SATD tile in registers and the warp takes
+//     the tile's Hadamard SATD (satd.cuh:warp_satd_tile: rows in registers,
+//     columns across lanes with shuffles); the tiles of a column are summed
+//     by shuffles and one lane stores the column.  Planar, DC and the exact
+//     HOR / VER (columns 0-3) and the ver group come in one sweep over the
+//     block as it is; the hor group in a second sweep over the transposed
+//     block against the transposed source, as the reference predicts it.
+//     An angular sample is VTM's refMain form: ref_m[j] = C[sym_m[j]] (the
+//     zero slot past the mode's line), four taps of the row at consecutive
+//     j = rowbase + x + k, (acc + 32) >> 6, clip, then PDPC with no clip
+//     after it.  No per-sample index table exists.
+//   rmd_mip_kernel<W, H>  every (MIP mode, transpose) pair: the boundary
+//     downsampling and the matrix step spread over the block's threads
+//     (weights staged in shared memory), the reduced predictions kept
+//     (at most 768 ints a position); a lane upsamples its tile row in
+//     registers from them and the boundaries, and the warp takes the SATD.
 //   rmd_reduce_kernel  one thread per position: min and first argmin over
 //     the 67 native columns, planar (column 0), and min and first argmin
 //     over the MIP columns (2^30 and 0 without MIP).
 //
-// No prediction leaves the block: at 1080p the reference's tensors would
-// hold about 24 GB.  Integer sums commute, so the shared-memory atomics give
-// the jax integers in any order; ties go to the first column in the native
-// order [0, 1, 18, 50, ver modes, hor modes], which the host maps back.
+// Each class is its own instantiation: the tile shape, the tile count, the
+// loop bounds and the shared-memory layout are compile-time constants.
+// Nothing is stored but one int32 per (position, column), and no atomics:
+// the integers are the jax reference's; ties go to the first column in the
+// native order [0, 1, 18, 50, ver modes, hor modes, (mip0, F), (mip0, T),
+// ...], which the host maps back.
 //
-// Bound on the H100: integer issue and shared-memory reads (about 5 table
-// or C reads and 20 integer operations per predicted sample, 67 to 99
-// columns per position); the only device-memory traffic is the source
-// window, the class tables (L1/L2-resident) and one int32 per column.
+// Bound on the H100: int32 instruction throughput (about 30 instructions
+// per predicted sample and mode: 4 multiply-adds, the tap window's shared
+// loads, the butterflies and the shuffles); device memory moves only the
+// source windows (L2-resident), the tables and one int32 per column.
 
 #include "satd.cuh"
 
 constexpr int N_ANG = 67;
+constexpr int N_SPECIAL = 4;    // planar, DC, HOR, VER
+constexpr int N_DIR = N_ANG - N_SPECIAL;
 constexpr int MIP_SHIFT = 6;    // MIP_SHIFT_MATRIX
 constexpr int MIP_OFFSET = 32;  // MIP_OFFSET_MATRIX
-constexpr int TAB_GROUP = 8;    // per group: M, dh, dw, col0, off cidx/f/wl/scidx
+constexpr int THREADS = 256;
 
-__device__ __forceinline__ int ilog2(int v) { return 31 - __clz(v); }
+// The compact class table (encoder/rmd.py:_compact_tables), int32:
+//   [0] length of the table, [1] tap rows, [2] offset of the tap rows;
+//   per group g (0 ver, 1 hor) at TAB_GROUP0 + 8 g: modes M, first native
+//   column, offsets of sym (M, sym_stride(DH, DW)): the index into C of
+//   ref_m[j]; rows (M, DH): rowbase | tap row << 16; pdpc (M, PDPC_COLS):
+//   PDPC weight | side offset << 8; side (M, 2): side base, side clamp.
+//   A tap row packs the four signed 8-bit taps, the first lowest.
+// The hor group's DH x DW block is the transposed W x H block.
+constexpr int TAB_HEAD = 20;
+constexpr int TAB_GROUP0 = 4;
+constexpr int PDPC_COLS = 16;
+constexpr int MAX_TAPS = 64;
 
-__host__ __device__ __forceinline__ int n_tiles(int h, int w) {
-  const int k = satd_kind(h, w);
-  return (h / satd_tile_rows(k)) * (w / satd_tile_cols(k));
-}
-
-static inline int block_threads(int items) {
-  return items >= 256 ? 256 : ((items + 31) / 32) * 32;
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ constexpr int ilog2c(int v) { return v <= 1 ? 0 : 1 + ilog2c(v >> 1); }
+__host__ __device__ constexpr int sym_stride(int dh, int dw) { return cmax(dh + dw + 3, 2 * dw + 4); }
+__host__ __device__ constexpr int tab_cap(int w, int h) {
+  return TAB_HEAD + MAX_TAPS +
+         N_DIR * (cmax(sym_stride(h, w), sym_stride(w, h)) + cmax(w, h) + PDPC_COLS + 2);
 }
 
 __device__ __forceinline__ int pix(const int* srcpad, int Hp, int Wp, int y,
@@ -57,12 +81,82 @@ __device__ __forceinline__ int pix(const int* srcpad, int Hp, int Wp, int y,
   return srcpad[(long long)clampi(y, Hp) * Wp + clampi(x, Wp)];
 }
 
-// The block's source samples src[h][w] at (y + 1, x + 1).
-__device__ void load_source(const int* srcpad, int Hp, int Wp, int x, int y,
-                            int w, int h, int* src) {
-  for (int k = threadIdx.x; k < h * w; k += blockDim.x)
-    src[k] = pix(srcpad, Hp, Wp, y + 1 + k / w, x + 1 + k % w);
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(FULL_WARP, v, s);
+  return v;
 }
+
+// The columns [0, n_items) of a sweep through the warps of the block.  A
+// column is a DH x DW block of TR x TC tiles; row(item, y, x0, d) writes the
+// differences of its row y, columns x0 .. x0 + TC - 1, into d, and
+// store(item, v) writes its SATD.  32 / TR tiles go through a warp at once:
+// several columns when a column has fewer tiles, else a column takes
+// several passes.  `rot` turns the warps' order, so that a sweep starts on
+// the warps the previous one left idle; returns the rotation for the next.
+template <int TR, int TC, int DH, int DW, class Row, class Store>
+__device__ __forceinline__ int warp_columns(int n_items, int rot, Row row,
+                                            Store store) {
+  constexpr int S = 32 / TR;
+  constexpr int NTX = DW / TC, NT = (DH / TR) * NTX;
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  const int w = ((threadIdx.x >> 5) + nw - rot) % nw;
+  const int slot = lane / TR, yr = lane % TR;
+  if constexpr (NT <= S) {
+    constexpr int PER = S / NT;  // columns a pass
+    const int t = slot % NT, y = (t / NTX) * TR + yr, x0 = (t % NTX) * TC;
+#pragma unroll 1
+    for (int i0 = w * PER; i0 < n_items; i0 += nw * PER) {
+      const int item = i0 + slot / NT;
+      int d[TC];
+      if (item < n_items) {
+        row(item, y, x0, d);
+      } else {
+#pragma unroll
+        for (int i = 0; i < TC; ++i) d[i] = 0;
+      }
+      int v = warp_satd_tile<TR, TC>(d);
+#pragma unroll
+      for (int s = TR; s < TR * NT; s <<= 1) v += __shfl_xor_sync(FULL_WARP, v, s);
+      if (item < n_items && lane % (TR * NT) == 0) store(item, v);
+    }
+    return ((n_items + PER - 1) / PER + rot) % nw;
+  } else {
+#pragma unroll 1
+    for (int item = w; item < n_items; item += nw) {
+      int acc = 0;
+#pragma unroll 1
+      for (int t0 = 0; t0 < NT; t0 += S) {
+        const int t = t0 + slot;
+        int d[TC];
+        row(item, (t / NTX) * TR + yr, (t % NTX) * TC, d);
+        acc += warp_satd_tile<TR, TC>(d);
+      }
+#pragma unroll
+      for (int s = TR; s < 32; s <<= 1) acc += __shfl_xor_sync(FULL_WARP, acc, s);
+      if (lane == 0) store(item, acc);
+    }
+    return (n_items + rot) % nw;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// angular
+
+__host__ __device__ constexpr int positions_per_block(int w, int h) { return cmax(1, 512 / (w * h)); }
+
+template <int W, int H>
+struct Ang {
+  static constexpr int NP = positions_per_block(W, H);
+  static constexpr int TU = 0, LU = 2 * W + 1, TF = LU + 2 * H + 1;
+  static constexpr int LF = TF + 2 * W + 1, ZS = LF + 2 * H + 1;
+  static constexpr int DCV = ZS + 1, SRC = DCV + 1;
+  static constexpr int PS = SRC + W * H;  // ints a position
+  static constexpr int TABS = tab_cap(W, H);
+  static constexpr size_t SMEM = (size_t)(TABS + NP * PS) * sizeof(int);
+  static constexpr int KIND = satd_kind(H, W);
+  static constexpr int TH = satd_tile_rows(KIND), TW = satd_tile_cols(KIND);
+};
 
 // PDPC of planar and DC (rmd_tpu.py:_pdpc_planar_dc_jnp), no clip.
 __device__ __forceinline__ int pdpc_planar_dc(int pred, const int* top,
@@ -73,240 +167,340 @@ __device__ __forceinline__ int pdpc_planar_dc(int pred, const int* top,
   return pred + ((wl * (left[1 + yy] - pred) + wt * (top[1 + xx] - pred) + 32) >> 6);
 }
 
-__global__ void rmd_angular_kernel(const int* __restrict__ srcpad, int Hp,
-                                   int Wp, const int* __restrict__ xs,
-                                   const int* __restrict__ ys,
-                                   const int* __restrict__ tab, int w, int h,
-                                   int maxv, int* __restrict__ out, int ncols) {
-  extern __shared__ int sm[];
-  const int tu0 = 0, lu0 = 2 * w + 1, tf0 = lu0 + 2 * h + 1;
-  const int lf0 = tf0 + 2 * w + 1, zslot = lf0 + 2 * h + 1;
-  const int hw = h * w;
-  int* C = sm;
-  int* src = C + zslot + 1;
-  int* spred = src + hw;  // predictions of modes 0, 1, 18, 50: (4, h, w)
-  int* sums = spred + 4 * hw;
-  int* dcv = sums + N_ANG;
-  const int p = blockIdx.x;
-  const int x = xs[p], y = ys[p];
-  const int* tu = C + tu0;
-  const int* lu = C + lu0;
-  for (int k = threadIdx.x; k < 2 * w + 1; k += blockDim.x)
-    C[tu0 + k] = pix(srcpad, Hp, Wp, y, x + k);
-  for (int k = threadIdx.x; k < 2 * h + 1; k += blockDim.x)
-    C[lu0 + k] = pix(srcpad, Hp, Wp, y + k, x);
-  load_source(srcpad, Hp, Wp, x, y, w, h, src);
-  for (int k = threadIdx.x; k < N_ANG; k += blockDim.x) sums[k] = 0;
-  __syncthreads();
-  // filtered copies (rmd_tpu.py:_filter_refs_jnp) and the DC value
-  const int corner = (tu[0] + tu[1] + lu[0] + lu[1] + 2) >> 2;
-  for (int k = threadIdx.x; k < 2 * w + 1; k += blockDim.x)
-    C[tf0 + k] = k == 0 ? corner : k == 2 * w ? tu[k]
-                                              : (tu[k - 1] + 2 * tu[k] + tu[k + 1] + 2) >> 2;
-  for (int k = threadIdx.x; k < 2 * h + 1; k += blockDim.x)
-    C[lf0 + k] = k == 0 ? corner : k == 2 * h ? lu[k]
-                                              : (lu[k - 1] + 2 * lu[k] + lu[k + 1] + 2) >> 2;
-  if (threadIdx.x == 0) {
-    C[zslot] = 0;
-    const int denom = w == h ? 2 * w : max(w, h);
-    int s = 0;
-    if (w >= h)
-      for (int k = 1; k <= w; ++k) s += tu[k];
-    if (w <= h)
-      for (int k = 1; k <= h; ++k) s += lu[k];
-    *dcv = (s + (denom >> 1)) >> ilog2(denom);
-  }
-  __syncthreads();
-
-  // planar, DC, exact HOR and VER with their PDPC (rmd_tpu.py:_planar_dc_jnp)
-  const int log2w = ilog2(w), log2h = ilog2(h);
-  const int pd_scale = (log2w - 2 + log2h - 2 + 2) >> 2;
-  const int hv_scale = (log2w + log2h - 2) >> 2;
-  const bool planar_filtered = w * h > 32;
-  const int* ut = planar_filtered ? C + tf0 : tu;
-  const int* ul = planar_filtered ? C + lf0 : lu;
-  for (int k = threadIdx.x; k < 4 * hw; k += blockDim.x) {
-    const int col = k / hw, yy = (k % hw) / w, xx = k % w;
-    int pr;
-    if (col == 0) {
-      const int le = ul[1 + yy], tp = ut[1 + xx];
-      const int hor = (le << log2w) + (xx + 1) * (ut[w + 1] - le);
-      const int ver = (tp << log2h) + (yy + 1) * (ul[h + 1] - tp);
-      pr = ((hor << log2h) + (ver << log2w) + (1 << (log2w + log2h))) >>
-           (1 + log2w + log2h);
-      pr = pdpc_planar_dc(pr, ut, ul, yy, xx, pd_scale);
-    } else if (col == 1) {
-      pr = pdpc_planar_dc(*dcv, tu, lu, yy, xx, pd_scale);
-    } else if (col == 2) {
-      const int wl = yy < min(3 << hv_scale, h) ? 32 >> min(31, (2 * yy) >> hv_scale) : 0;
-      pr = clip3(0, maxv, lu[1 + yy] + ((wl * (tu[1 + xx] - tu[0]) + 32) >> 6));
-    } else {
-      const int wl = xx < min(3 << hv_scale, w) ? 32 >> min(31, (2 * xx) >> hv_scale) : 0;
-      pr = clip3(0, maxv, tu[1 + xx] + ((wl * (lu[1 + yy] - tu[0]) + 32) >> 6));
+// Row y, columns x0.., of planar (0), DC (1), HOR (2) or VER (3) with their
+// PDPC (rmd_tpu.py:_planar_dc_jnp), minus the source.
+template <int W, int H, int TC>
+__device__ __forceinline__ void special_row(int col, const int* C, int y,
+                                            int x0, int maxv, int (&d)[TC]) {
+  using K = Ang<W, H>;
+  constexpr int L2W = ilog2c(W), L2H = ilog2c(H);
+  constexpr int PD = (L2W - 2 + L2H - 2 + 2) >> 2, HV = (L2W + L2H - 2) >> 2;
+  constexpr bool FILT = W * H > 32;
+  const int* tu = C + K::TU;
+  const int* lu = C + K::LU;
+  const int* ut = FILT ? C + K::TF : tu;
+  const int* ul = FILT ? C + K::LF : lu;
+  const int* src = C + K::SRC + y * W;
+  if (col == 0) {
+    const int le = ul[1 + y], tr = ut[W + 1], bl = ul[H + 1];
+#pragma unroll
+    for (int i = 0; i < TC; ++i) {
+      const int x = x0 + i, tp = ut[1 + x];
+      const int hor = (le << L2W) + (x + 1) * (tr - le);
+      const int ver = (tp << L2H) + (y + 1) * (bl - tp);
+      const int pr = ((hor << L2H) + (ver << L2W) + (1 << (L2W + L2H))) >> (1 + L2W + L2H);
+      d[i] = pdpc_planar_dc(pr, ut, ul, y, x, PD) - src[x];
     }
-    spred[k] = pr;
-  }
-  __syncthreads();
-
-  const int kind = satd_kind(h, w);
-  const int nt = n_tiles(h, w);
-  const int hor_col0 = tab[TAB_GROUP + 3];
-  const bool has_hor = tab[TAB_GROUP] > 0;
-  for (int it = threadIdx.x; it < N_ANG * nt; it += blockDim.x) {
-    const int col = it / nt, t = it % nt;
-    int v;
-    if (col < 4) {
-      const int tw = satd_tile_cols(kind), th = satd_tile_rows(kind);
-      const int ntx = w / tw;
-      const int* pr = spred + col * hw;
-      v = satd_tile(kind, (t / ntx) * th, (t % ntx) * tw, [&](int yy, int xx) {
-        return pr[yy * w + xx] - src[yy * w + xx];
-      });
-    } else {
-      const int g = has_hor && col >= hor_col0 ? 1 : 0;
-      const int* hd = tab + g * TAB_GROUP;
-      const int dh = hd[1], dw = hd[2], m = col - hd[3];
-      const int* cidx = tab + hd[4];
-      const int* f = tab + hd[5];
-      const int* wl = tab + hd[6] + m * dw;
-      const int* scidx = tab + hd[7];
-      const int gk = satd_kind(dh, dw);
-      const int tw = satd_tile_cols(gk), th = satd_tile_rows(gk);
-      const int ntx = dw / tw;
-      v = satd_tile(gk, (t / ntx) * th, (t % ntx) * tw, [&](int yy, int xx) {
-        const int r = m * dh + yy;
-        const int* ci = cidx + ((long long)r * dw + xx) * 4;
-        const int* fr = f + r * 4;
-        const int acc = fr[0] * C[ci[0]] + fr[1] * C[ci[1]] + fr[2] * C[ci[2]] +
-                        fr[3] * C[ci[3]];
-        int pr = clip3(0, maxv, (acc + 32) >> 6);
-        const int side = C[scidx[(long long)r * dw + xx]];
-        pr += (wl[xx] * (side - pr) + 32) >> 6;  // no clip after PDPC
-        return pr - (g == 0 ? src[yy * w + xx] : src[xx * w + yy]);
-      });
-    }
-    atomicAdd(&sums[col], v);
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < N_ANG; k += blockDim.x)
-    out[(long long)p * ncols + k] = sums[k];
-}
-
-// Boundary downsampling of MIP (rmd_tpu.py:_mip_jnp dsmp).
-__device__ __forceinline__ void mip_downsample(const int* full, int len, int n,
-                                               int* dst) {
-  if (n < len) {
-    const int fct = len / n, lf = ilog2(fct);
-    for (int i = 0; i < n; ++i) {
-      int s = 0;
-      for (int j = 0; j < fct; ++j) s += full[i * fct + j];
-      dst[i] = (s + (1 << (lf - 1))) >> lf;
+  } else if (col == 1) {
+    const int dcv = C[K::DCV];
+#pragma unroll
+    for (int i = 0; i < TC; ++i)
+      d[i] = pdpc_planar_dc(dcv, tu, lu, y, x0 + i, PD) - src[x0 + i];
+  } else if (col == 2) {
+    const int wl = y < cmin(3 << HV, H) ? 32 >> min(31, (2 * y) >> HV) : 0;
+#pragma unroll
+    for (int i = 0; i < TC; ++i) {
+      const int x = x0 + i;
+      d[i] = clip3(0, maxv, lu[1 + y] + ((wl * (tu[1 + x] - tu[0]) + 32) >> 6)) - src[x];
     }
   } else {
-    for (int i = 0; i < n; ++i) dst[i] = full[i];
+#pragma unroll
+    for (int i = 0; i < TC; ++i) {
+      const int x = x0 + i;
+      const int wl = x < cmin(3 << HV, W) ? 32 >> min(31, (2 * x) >> HV) : 0;
+      d[i] = clip3(0, maxv, tu[1 + x] + ((wl * (lu[1 + y] - tu[0]) + 32) >> 6)) - src[x];
+    }
   }
 }
 
-__global__ void rmd_mip_kernel(const int* __restrict__ srcpad, int Hp, int Wp,
-                               const int* __restrict__ xs,
-                               const int* __restrict__ ys,
-                               const int* __restrict__ wadj, int n_modes,
-                               int w, int h, int bit_depth,
-                               int* __restrict__ out, int ncols) {
-  extern __shared__ int sm[];
-  const int size_id = (w == 4 && h == 4) ? 0 : (w == 4 || h == 4 || (w == 8 && h == 8)) ? 1 : 2;
-  const int bdry = size_id == 0 ? 2 : 4, red = size_id < 2 ? 4 : 8;
-  const int input_size = 2 * bdry, rr = red * red;
-  const int up_h = w / red, up_v = h / red;
-  const int maxv = (1 << bit_depth) - 1;
-  int* t1 = sm;             // top row, w
-  int* l1 = t1 + w;         // left column, h
-  int* src = l1 + h;        // h * w
-  int* inp = src + h * w;   // 2 x 8 boundary inputs
-  int* ioff = inp + 16;     // 2
-  int* offs = ioff + 2;     // 2
-  int* rp = offs + 2;       // reduced predictions, (2, n_modes, red, red)
-  int* sums = rp + 2 * n_modes * rr;
-  int* up = sums + 2 * n_modes;  // full predictions, (n_modes, 2, h, w)
-  const int p = blockIdx.x;
-  const int x = xs[p], y = ys[p];
-  for (int k = threadIdx.x; k < w; k += blockDim.x) t1[k] = pix(srcpad, Hp, Wp, y, x + 1 + k);
-  for (int k = threadIdx.x; k < h; k += blockDim.x) l1[k] = pix(srcpad, Hp, Wp, y + 1 + k, x);
-  load_source(srcpad, Hp, Wp, x, y, w, h, src);
-  for (int k = threadIdx.x; k < 2 * n_modes; k += blockDim.x) sums[k] = 0;
-  __syncthreads();
-  if (threadIdx.x < 2) {
-    const int trp = threadIdx.x;
-    int tr_red[4], lr_red[4], r[8];
-    mip_downsample(t1, w, bdry, tr_red);
-    mip_downsample(l1, h, bdry, lr_red);
-    for (int i = 0; i < bdry; ++i) {
-      r[i] = trp ? lr_red[i] : tr_red[i];
-      r[bdry + i] = trp ? tr_red[i] : lr_red[i];
+// Row r, columns c0.., of angular mode m of group g (a DH x DW block; T: the
+// transposed W-wide source), minus the source.
+template <int TC, int DH, int DW, bool T, int W>
+__device__ __forceinline__ void angular_row(const int* stab, const int* g,
+                                            int m, const int* C,
+                                            const int* src, int r, int c0,
+                                            int maxv, int (&d)[TC]) {
+  const int info = stab[g[3] + m * DH + r];
+  const int taps = stab[stab[2] + (info >> 16)];
+  const int f0 = (signed char)taps, f1 = (signed char)(taps >> 8);
+  const int f2 = (signed char)(taps >> 16), f3 = taps >> 24;
+  const int* sym = stab + g[2] + m * sym_stride(DH, DW) + (info & 0xffff) + c0;
+  const int* pdpc = stab + g[4] + m * PDPC_COLS;
+  int a0 = C[sym[0]], a1 = C[sym[1]], a2 = C[sym[2]];
+#pragma unroll
+  for (int i = 0; i < TC; ++i) {
+    const int a3 = C[sym[i + 3]];
+    int pr = clip3(0, maxv, (f0 * a0 + f1 * a1 + f2 * a2 + f3 * a3 + 32) >> 6);
+    const int c = c0 + i;
+    if (c < PDPC_COLS) {
+      const int wc = pdpc[c];
+      if (wc & 0xff) {
+        const int* side = stab + g[5] + 2 * m;
+        const int sv = C[side[0] + min(r + (wc >> 8), side[1])];
+        pr += ((wc & 0xff) * (sv - pr) + 32) >> 6;  // no clip after PDPC
+      }
     }
-    const int off0 = r[0];
+    d[i] = pr - (T ? src[c * W + r] : src[r * W + c]);
+    a0 = a1;
+    a1 = a2;
+    a2 = a3;
+  }
+}
+
+template <int W, int H>
+__global__ void __launch_bounds__(THREADS, 2)
+rmd_angular_kernel(const int* __restrict__ srcpad, int Hp, int Wp,
+                   const int* __restrict__ xs, const int* __restrict__ ys,
+                   int P, const int* __restrict__ tab, int maxv,
+                   int* __restrict__ out, int ncols) {
+  using K = Ang<W, H>;
+  extern __shared__ int sm[];
+  int* stab = sm;
+  int* pos = sm + K::TABS;
+  const int p0 = blockIdx.x * K::NP, np = min(K::NP, P - p0);
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int tab_len = tab[0];
+  for (int k = tid; k < tab_len; k += nth) stab[k] = tab[k];
+  // raw references (Tu, Lu) and the source block of each position
+  constexpr int RAW = K::TF + W * H;
+  for (int k = tid; k < np * RAW; k += nth) {
+    const int p = k / RAW, e = k - p * RAW;
+    const int x = xs[p0 + p], y = ys[p0 + p];
+    int* C = pos + p * K::PS;
+    if (e < K::LU) {
+      C[e] = pix(srcpad, Hp, Wp, y, x + e);
+    } else if (e < K::TF) {
+      C[e] = pix(srcpad, Hp, Wp, y + e - K::LU, x);
+    } else {
+      const int j = e - K::TF;
+      C[K::SRC + j] = pix(srcpad, Hp, Wp, y + 1 + j / W, x + 1 + j % W);
+    }
+  }
+  __syncthreads();
+  // filtered copies (rmd_tpu.py:_filter_refs_jnp)
+  constexpr int FIL = K::ZS - K::TF;
+  for (int k = tid; k < np * FIL; k += nth) {
+    const int p = k / FIL, e = k - p * FIL;
+    int* C = pos + p * K::PS;
+    const int* tu = C + K::TU;
+    const int* lu = C + K::LU;
+    const int corner = (tu[0] + tu[1] + lu[0] + lu[1] + 2) >> 2;
+    if (e < 2 * W + 1)
+      C[K::TF + e] = e == 0 ? corner : e == 2 * W ? tu[e]
+                                                  : (tu[e - 1] + 2 * tu[e] + tu[e + 1] + 2) >> 2;
+    else {
+      const int j = e - (2 * W + 1);
+      C[K::LF + j] = j == 0 ? corner : j == 2 * H ? lu[j]
+                                                  : (lu[j - 1] + 2 * lu[j] + lu[j + 1] + 2) >> 2;
+    }
+  }
+  // the zero slot and the DC value, a warp a position
+  const int lane = tid & 31, nw = nth >> 5;
+  constexpr int DENOM = W == H ? 2 * W : cmax(W, H);
+  for (int p = tid >> 5; p < np; p += nw) {
+    int* C = pos + p * K::PS;
     int s = 0;
-    for (int i = 0; i < input_size; ++i) {
-      const int v = i == 0 ? (size_id < 2 ? (1 << (bit_depth - 1)) - off0 : 0) : r[i] - off0;
-      inp[trp * 8 + i] = v;
+    if constexpr (W >= H)
+      for (int k = lane; k < W; k += 32) s += C[K::TU + 1 + k];
+    if constexpr (W <= H)
+      for (int k = lane; k < H; k += 32) s += C[K::LU + 1 + k];
+    s = warp_sum(s);
+    if (lane == 0) {
+      C[K::ZS] = 0;
+      C[K::DCV] = (s + (DENOM >> 1)) >> ilog2c(DENOM);
+    }
+  }
+  __syncthreads();
+
+  const int* gv = stab + TAB_GROUP0;      // ver group: the block as it is
+  const int* gh = stab + TAB_GROUP0 + 8;  // hor group: the transposed block
+  const int na = N_SPECIAL + gv[0], mh = gh[0], hor0 = gh[1];
+  int* o = out + (long long)p0 * ncols;
+  const int rot = warp_columns<K::TH, K::TW, H, W>(
+      np * na, 0,
+      [&](int item, int y, int x0, int (&d)[K::TW]) {
+        const int p = item / na, col = item - p * na;
+        const int* C = pos + p * K::PS;
+        if (col < N_SPECIAL)
+          special_row<W, H, K::TW>(col, C, y, x0, maxv, d);
+        else
+          angular_row<K::TW, H, W, false, W>(stab, gv, col - N_SPECIAL, C,
+                                             C + K::SRC, y, x0, maxv, d);
+      },
+      [&](int item, int v) {
+        const int p = item / na;
+        o[(long long)p * ncols + item - p * na] = v;
+      });
+  warp_columns<K::TW, K::TH, W, H>(
+      np * mh, rot,
+      [&](int item, int r, int c0, int (&d)[K::TH]) {
+        const int p = item / mh;
+        const int* C = pos + p * K::PS;
+        angular_row<K::TH, W, H, true, W>(stab, gh, item - p * mh, C,
+                                          C + K::SRC, r, c0, maxv, d);
+      },
+      [&](int item, int v) {
+        const int p = item / mh;
+        o[(long long)p * ncols + hor0 + item - p * mh] = v;
+      });
+}
+
+// ---------------------------------------------------------------------------
+// MIP
+
+template <int W, int H>
+struct Mip {
+  static constexpr int SIZE_ID = (W == 4 && H == 4) ? 0
+                                 : (W == 4 || H == 4 || (W == 8 && H == 8)) ? 1 : 2;
+  static constexpr int BDRY = SIZE_ID == 0 ? 2 : 4, RED = SIZE_ID < 2 ? 4 : 8;
+  static constexpr int IN = 2 * BDRY, RR = RED * RED;
+  static constexpr int NM = SIZE_ID == 0 ? 16 : SIZE_ID == 1 ? 8 : 6;
+  static constexpr int UPH = W / RED, UPV = H / RED;
+  static constexpr int NP = cmin(8, cmax(1, 256 / (W * H)));
+  static constexpr int THREADS_ = NP == 1 ? 128 : THREADS;
+  static constexpr int T1 = 0, L1 = W, SRC = W + H, INP = SRC + W * H;
+  static constexpr int IOFF = INP + 2 * IN, OFFS = IOFF + 2, RP = OFFS + 2;
+  static constexpr int PS = RP + 2 * NM * RR;  // ints a position
+  static constexpr int WADJ = NM * RR * IN;
+  static constexpr size_t SMEM = (size_t)(WADJ + NP * PS) * sizeof(int);
+  static constexpr int KIND = satd_kind(H, W);
+  static constexpr int TH = satd_tile_rows(KIND), TW = satd_tile_cols(KIND);
+};
+
+// Boundary downsampling of MIP (rmd_tpu.py:_mip_jnp dsmp).
+template <int LEN, int N>
+__device__ __forceinline__ void mip_downsample(const int* full, int* dst) {
+  if constexpr (N < LEN) {
+    constexpr int FCT = LEN / N, LF = ilog2c(FCT);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      int s = 0;
+      for (int j = 0; j < FCT; ++j) s += full[i * FCT + j];
+      dst[i] = (s + (1 << (LF - 1))) >> LF;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) dst[i] = full[i];
+  }
+}
+
+// Upsampled sample (y, x) of the reduced prediction R (predictionUpsampling1D:
+// horizontal on the reduced rows with the left column as the boundary, then
+// vertical with the top row).
+template <int W, int H>
+__device__ __forceinline__ int mip_sample(const int* R, const int* t1,
+                                          const int* l1, int y, int x) {
+  using K = Mip<W, H>;
+  auto hval = [&](int r) {
+    if constexpr (K::UPH == 1) {
+      return R[r * K::RED + x];
+    } else {
+      constexpr int LF = ilog2c(K::UPH);
+      const int k = x / K::UPH, q = x % K::UPH;
+      const int before = k == 0 ? l1[(r + 1) * K::UPV - 1] : R[r * K::RED + k - 1];
+      return (before * (K::UPH - 1 - q) + R[r * K::RED + k] * (q + 1) + (1 << (LF - 1))) >> LF;
+    }
+  };
+  if constexpr (K::UPV == 1) {
+    return hval(y);
+  } else {
+    constexpr int LF = ilog2c(K::UPV);
+    const int k = y / K::UPV, q = y % K::UPV;
+    const int before = k == 0 ? t1[x] : hval(k - 1);
+    return (before * (K::UPV - 1 - q) + hval(k) * (q + 1) + (1 << (LF - 1))) >> LF;
+  }
+}
+
+template <int W, int H>
+__global__ void __launch_bounds__(Mip<W, H>::THREADS_, 2)
+rmd_mip_kernel(const int* __restrict__ srcpad, int Hp, int Wp,
+               const int* __restrict__ xs, const int* __restrict__ ys, int P,
+               const int* __restrict__ wadj, int bit_depth,
+               int* __restrict__ out, int ncols) {
+  using K = Mip<W, H>;
+  extern __shared__ int sm[];
+  int* wsm = sm;
+  int* pos = sm + K::WADJ;
+  const int p0 = blockIdx.x * K::NP, np = min(K::NP, P - p0);
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int maxv = (1 << bit_depth) - 1;
+  for (int k = tid; k < K::WADJ; k += nth) wsm[k] = wadj[k];
+  constexpr int RAW = K::INP;  // t1, l1, source
+  for (int k = tid; k < np * RAW; k += nth) {
+    const int p = k / RAW, e = k - p * RAW;
+    const int x = xs[p0 + p], y = ys[p0 + p];
+    int v;
+    if (e < K::L1) {
+      v = pix(srcpad, Hp, Wp, y, x + 1 + e);
+    } else if (e < K::SRC) {
+      v = pix(srcpad, Hp, Wp, y + 1 + e - K::L1, x);
+    } else {
+      const int j = e - K::SRC;
+      v = pix(srcpad, Hp, Wp, y + 1 + j / W, x + 1 + j % W);
+    }
+    pos[p * K::PS + e] = v;
+  }
+  __syncthreads();
+  // boundary inputs, a thread per (position, transpose)
+  for (int k = tid; k < 2 * np; k += nth) {
+    int* b = pos + (k >> 1) * K::PS;
+    const int trp = k & 1;
+    int tr_red[K::BDRY], lr_red[K::BDRY];
+    mip_downsample<W, K::BDRY>(b + K::T1, tr_red);
+    mip_downsample<H, K::BDRY>(b + K::L1, lr_red);
+    const int off0 = trp ? lr_red[0] : tr_red[0];
+    int s = 0;
+#pragma unroll
+    for (int i = 0; i < K::IN; ++i) {
+      const int r = i < K::BDRY ? (trp ? lr_red[i] : tr_red[i])
+                                : (trp ? tr_red[i - K::BDRY] : lr_red[i - K::BDRY]);
+      const int v = i == 0 ? (K::SIZE_ID < 2 ? (1 << (bit_depth - 1)) - off0 : 0) : r - off0;
+      b[K::INP + trp * K::IN + i] = v;
       s += v;
     }
-    ioff[trp] = off0;
-    offs[trp] = (1 << (MIP_SHIFT - 1)) - MIP_OFFSET * s;
+    b[K::IOFF + trp] = off0;
+    b[K::OFFS + trp] = (1 << (MIP_SHIFT - 1)) - MIP_OFFSET * s;
   }
   __syncthreads();
-  for (int it = threadIdx.x; it < 2 * n_modes * rr; it += blockDim.x) {
-    const int trp = it / (n_modes * rr), rem = it % (n_modes * rr);
-    const int m = rem / rr, o = rem % rr;
-    const int* wv = wadj + ((long long)m * rr + o) * input_size;
+  // the matrix step: every reduced sample of every (mode, transpose)
+  constexpr int RED_ITEMS = 2 * K::NM * K::RR;
+  for (int k = tid; k < np * RED_ITEMS; k += nth) {
+    const int p = k / RED_ITEMS, e = k - p * RED_ITEMS;
+    const int trp = e / (K::NM * K::RR), rem = e % (K::NM * K::RR);
+    const int m = rem / K::RR, q = rem % K::RR;
+    int* b = pos + p * K::PS;
+    const int* in = b + K::INP + trp * K::IN;
+    const int* wv = wsm + (m * K::RR + q) * K::IN;
     int acc = 0;
-    for (int i = 0; i < input_size; ++i) acc += inp[trp * 8 + i] * wv[i];
-    const int v = clip3(0, maxv, ((acc + offs[trp]) >> MIP_SHIFT) + ioff[trp]);
+#pragma unroll
+    for (int i = 0; i < K::IN; ++i) acc += in[i] * wv[i];
+    const int v = clip3(0, maxv, ((acc + b[K::OFFS + trp]) >> MIP_SHIFT) + b[K::IOFF + trp]);
     // the transposed pair is stored transposed (reduced rows x cols)
-    rp[(trp * n_modes + m) * rr + (trp ? (o % red) * red + o / red : o)] = v;
+    b[K::RP + (trp * K::NM + m) * K::RR +
+      (trp ? (q % K::RED) * K::RED + q / K::RED : q)] = v;
   }
   __syncthreads();
-
-  // upsampling (predictionUpsampling1D): horizontal on the reduced rows
-  // with the left column as the boundary, then vertical with the top row
-  const int hw = h * w;
-  const int lfh = up_h > 1 ? ilog2(up_h) : 0, lfv = up_v > 1 ? ilog2(up_v) : 0;
-  auto hval = [&](const int* R, int r, int xx) {
-    if (up_h == 1) return R[r * red + xx];
-    const int k = xx / up_h, pos = xx % up_h;
-    const int before = k == 0 ? l1[(r + 1) * up_v - 1] : R[r * red + k - 1];
-    return (before * (up_h - 1 - pos) + R[r * red + k] * (pos + 1) + (1 << (lfh - 1))) >> lfh;
-  };
-  for (int k = threadIdx.x; k < 2 * n_modes * hw; k += blockDim.x) {
-    const int col = k / hw, yy = (k % hw) / w, xx = k % w;  // col = 2 mode + T
-    const int* R = rp + ((col & 1) * n_modes + (col >> 1)) * rr;
-    int pr;
-    if (up_v == 1) {
-      pr = hval(R, yy, xx);
-    } else {
-      const int kk = yy / up_v, pos = yy % up_v;
-      const int before = kk == 0 ? t1[xx] : hval(R, kk - 1, xx);
-      pr = (before * (up_v - 1 - pos) + hval(R, kk, xx) * (pos + 1) + (1 << (lfv - 1))) >> lfv;
-    }
-    up[k] = pr;
-  }
-  __syncthreads();
-
-  const int kind = satd_kind(h, w);
-  const int tw = satd_tile_cols(kind), th = satd_tile_rows(kind);
-  const int ntx = w / tw, nt = n_tiles(h, w);
-  for (int it = threadIdx.x; it < 2 * n_modes * nt; it += blockDim.x) {
-    const int col = it / nt, t = it % nt;
-    const int* pr = up + col * hw;
-    const int v = satd_tile(kind, (t / ntx) * th, (t % ntx) * tw, [&](int yy, int xx) {
-      return pr[yy * w + xx] - src[yy * w + xx];
-    });
-    atomicAdd(&sums[col], v);
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < 2 * n_modes; k += blockDim.x)
-    out[(long long)p * ncols + N_ANG + k] = sums[k];
+  int* o = out + (long long)p0 * ncols + N_ANG;
+  constexpr int NC = 2 * K::NM;  // columns a position: (mode, transpose)
+  warp_columns<K::TH, K::TW, H, W>(
+      np * NC, 0,
+      [&](int item, int y, int x0, int (&d)[K::TW]) {
+        const int p = item / NC, col = item - p * NC;
+        const int* b = pos + p * K::PS;
+        const int* R = b + K::RP + ((col & 1) * K::NM + (col >> 1)) * K::RR;
+        const int* src = b + K::SRC + y * W;
+#pragma unroll
+        for (int i = 0; i < K::TW; ++i)
+          d[i] = mip_sample<W, H>(R, b + K::T1, b + K::L1, y, x0 + i) - src[x0 + i];
+      },
+      [&](int item, int v) {
+        const int p = item / NC;
+        o[(long long)p * ncols + item - p * NC] = v;
+      });
 }
+
+// ---------------------------------------------------------------------------
+// reduction
 
 __global__ void rmd_reduce_kernel(const int* __restrict__ out, int P,
                                   int ncols, int n_mip_cols,
@@ -333,40 +527,71 @@ __global__ void rmd_reduce_kernel(const int* __restrict__ out, int P,
   }
 }
 
+// ---------------------------------------------------------------------------
+// entry points: one instantiation per class of the intra class list
+// (encoder/rmd.py:intra_class_list); another class is refused
+
+#define RMD_CLASSES(X)                                                      \
+  X(4, 4) X(4, 8) X(4, 16) X(4, 32) X(8, 4) X(8, 8) X(8, 16) X(8, 32)     \
+  X(16, 4) X(16, 8) X(16, 16) X(16, 32) X(32, 4) X(32, 8) X(32, 16)        \
+  X(32, 32) X(64, 64)
+
 static int set_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)bytes);
 }
 
+template <int W, int H>
+static int launch_angular(const int* srcpad, int Hp, int Wp, const int* xs,
+                          const int* ys, int P, const int* tab, int bit_depth,
+                          int* out, int ncols, cudaStream_t st) {
+  using K = Ang<W, H>;
+  const int e = set_smem((const void*)rmd_angular_kernel<W, H>, K::SMEM);
+  if (e) return e;
+  rmd_angular_kernel<W, H><<<(P + K::NP - 1) / K::NP, THREADS, K::SMEM, st>>>(
+      srcpad, Hp, Wp, xs, ys, P, tab, (1 << bit_depth) - 1, out, ncols);
+  return launch_status();
+}
+
+template <int W, int H>
+static int launch_mip(const int* srcpad, int Hp, int Wp, const int* xs,
+                      const int* ys, int P, const int* wadj, int n_modes,
+                      int bit_depth, int* out, int ncols, cudaStream_t st) {
+  using K = Mip<W, H>;
+  if (n_modes != K::NM) return (int)cudaErrorInvalidValue;
+  const int e = set_smem((const void*)rmd_mip_kernel<W, H>, K::SMEM);
+  if (e) return e;
+  rmd_mip_kernel<W, H><<<(P + K::NP - 1) / K::NP, K::THREADS_, K::SMEM, st>>>(
+      srcpad, Hp, Wp, xs, ys, P, wadj, bit_depth, out, ncols);
+  return launch_status();
+}
+
 VTM_API int vtm_rmd_angular(const int* srcpad, int Hp, int Wp, const int* xs,
                             const int* ys, int P, const int* tab, int w, int h,
                             int bit_depth, int* out, int ncols, void* stream) {
-  if (P == 0) return 0;
-  const size_t smem = (size_t)(4 * w + 4 * h + 5 + 5 * h * w + N_ANG + 1) * sizeof(int);
-  int e = set_smem((const void*)rmd_angular_kernel, smem);
-  if (e) return e;
-  rmd_angular_kernel<<<P, block_threads(N_ANG * n_tiles(h, w)), smem,
-                       (cudaStream_t)stream>>>(srcpad, Hp, Wp, xs, ys, tab, w,
-                                               h, (1 << bit_depth) - 1, out,
-                                               ncols);
-  return launch_status();
+#define RMD_ANGULAR(W_, H_)                                                  \
+  if (w == W_ && h == H_)                                                   \
+    return P == 0 ? 0 : launch_angular<W_, H_>(srcpad, Hp, Wp, xs, ys, P,   \
+                                               tab, bit_depth, out, ncols,  \
+                                               (cudaStream_t)stream);
+  RMD_CLASSES(RMD_ANGULAR)
+#undef RMD_ANGULAR
+  return (int)cudaErrorInvalidValue;
 }
 
 VTM_API int vtm_rmd_mip(const int* srcpad, int Hp, int Wp, const int* xs,
                         const int* ys, int P, const int* wadj, int n_modes,
                         int w, int h, int bit_depth, int* out, int ncols,
                         void* stream) {
-  if (P == 0) return 0;
-  const int red = (w == 4 || h == 4 || (w == 8 && h == 8)) ? 4 : 8;
-  const size_t smem = (size_t)(w + h + h * w + 20 + 2 * n_modes * red * red +
-                               2 * n_modes + 2 * n_modes * h * w) * sizeof(int);
-  int e = set_smem((const void*)rmd_mip_kernel, smem);
-  if (e) return e;
-  const int items = 2 * n_modes * max(red * red, h * w);
-  rmd_mip_kernel<<<P, block_threads(items), smem, (cudaStream_t)stream>>>(
-      srcpad, Hp, Wp, xs, ys, wadj, n_modes, w, h, bit_depth, out, ncols);
-  return launch_status();
+#define RMD_MIP(W_, H_)                                                      \
+  if (w == W_ && h == H_)                                                   \
+    return P == 0 ? 0 : launch_mip<W_, H_>(srcpad, Hp, Wp, xs, ys, P, wadj, \
+                                           n_modes, bit_depth, out, ncols,  \
+                                           (cudaStream_t)stream);
+  RMD_CLASSES(RMD_MIP)
+#undef RMD_MIP
+  return (int)cudaErrorInvalidValue;
 }
 
 VTM_API int vtm_rmd_reduce(const int* out, int P, int ncols, int n_mip_cols,
@@ -376,4 +601,41 @@ VTM_API int vtm_rmd_reduce(const int* out, int P, int ncols, int n_mip_cols,
   rmd_reduce_kernel<<<(P + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
       out, P, ncols, n_mip_cols, red);
   return launch_status();
+}
+
+// What a class's two kernels run with on this card, into o[12]: for the
+// angular then the MIP kernel, threads a block, dynamic shared bytes,
+// resident blocks an SM, positions a block, registers a thread and local
+// (spill) bytes a thread.  Not a kernel: nothing is launched.
+template <class F>
+static int kernel_config(F* fn, int threads, size_t smem, int np, int* o) {
+  int e = set_smem((const void*)fn, smem);
+  if (e) return e;
+  cudaFuncAttributes a;
+  e = (int)cudaFuncGetAttributes(&a, (const void*)fn);
+  if (e) return e;
+  int blocks = 0;
+  e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, smem);
+  if (e) return e;
+  o[0] = threads;
+  o[1] = (int)smem;
+  o[2] = blocks;
+  o[3] = np;
+  o[4] = a.numRegs;
+  o[5] = (int)a.localSizeBytes;
+  return 0;
+}
+
+VTM_API int vtm_rmd_config(int w, int h, int* o) {
+#define RMD_CONFIG(W_, H_)                                                   \
+  if (w == W_ && h == H_) {                                                 \
+    const int e = kernel_config(rmd_angular_kernel<W_, H_>, THREADS,        \
+                                Ang<W_, H_>::SMEM, Ang<W_, H_>::NP, o);     \
+    return e ? e : kernel_config(rmd_mip_kernel<W_, H_>,                    \
+                                 Mip<W_, H_>::THREADS_, Mip<W_, H_>::SMEM,  \
+                                 Mip<W_, H_>::NP, o + 6);                   \
+  }
+  RMD_CLASSES(RMD_CONFIG)
+#undef RMD_CONFIG
+  return (int)cudaErrorInvalidValue;
 }

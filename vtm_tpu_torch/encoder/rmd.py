@@ -16,13 +16,17 @@ argmin over the MIP columns, or 2^30 and 0 without MIP).
 * CPU tensors: `class_costs_plain`, the jax function's gather formulation
   in torch int32 (the fp32 matrix form of the reference served the TPU's
   matrix unit only), in chunks of positions.
-* CUDA tensors: csrc/rmd.cu, three kernels (angular, MIP, reduce) with the
-  SATD of csrc/satd.cuh fused in; no prediction is ever stored.
+* CUDA tensors: csrc/rmd.cu, three kernels (angular, MIP, reduce), one
+  instantiation per class, with the warp SATD of csrc/satd.cuh fused in; no
+  prediction is ever stored.
 
 The per-class tables come from the numpy table functions below
-(`class_tables`, `rom.mip_matrix`), composed into direct indices into
-the reference buffer C = [Tu | Lu | Tf | Lf | 0] and uploaded once per
-class and device.
+(`class_tables`, `rom.mip_matrix`), indexing the reference buffer C = [Tu |
+Lu | Tf | Lf | 0], and are uploaded once per class and device in two forms:
+per-sample gather indices for the plain version, and the compact table of
+`_compact_tables` (a reference line per mode, a tap row and a base per
+(mode, row), PDPC weights per (mode, column)) that the kernel stages in
+shared memory.
 
 Not carried over: the power-of-two position buckets (they bounded XLA
 compiles), the fp32 matmul tables, `_device_consts`, the thread-pool
@@ -32,6 +36,7 @@ device.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import numpy as np
@@ -42,17 +47,23 @@ from vtm_tpu_torch.common import rom
 from vtm_tpu_torch.device import resolve_device
 from vtm_tpu_torch.ops import clamp_index, pick, upload
 from vtm_tpu_torch.ops import intra as I
-from vtm_tpu_torch.ops.rdcost import KINDS, satd_batch_plain, satd_kind
+from vtm_tpu_torch.ops.rdcost import satd_batch_plain
 
 N_ANG = 67
 PAD_R = 2 * 64 + 2  # right/bottom edge padding of the source plane
 NO_MIP = 1 << 30  # red[:, 3] of a class without MIP
 GROUPS = ("ver", "hor")
-# csrc/rmd.cu reads, per group, (M, dh, dw, col0, off_cidx, off_f, off_wl,
-# off_scidx) from the head of the packed table
-TAB_HEAD = 8 * len(GROUPS)
+# the compact table's layout, as csrc/rmd.cu reads it (the constants there):
+# (length, tap rows, offset of the tap rows, 0), then per group (M, first
+# native column, offsets of sym, rows, pdpc, side, 0, 0)
+TAB_HEAD = 4 + 8 * len(GROUPS)
+PDPC_COLS = 16  # PDPC weights are kept for the first 16 columns of a mode
+MAX_TAPS = 64
 # sample-mode products of one plain chunk (int32 tensors of 32 MB)
 CHUNK = 1 << 23
+# what csrc/rmd.cu:vtm_rmd_config reports per kernel of a class
+CONFIG_FIELDS = ("threads", "smem_bytes", "blocks_per_sm", "positions_per_block",
+                 "registers", "local_bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -146,16 +157,23 @@ def _build_mode_tables(w: int, h: int, bit_depth: int):
         # excluded from this table — handled separately)
         wl = np.zeros(dw, dtype=np.int64)
         sidx_t = np.zeros((dh, dw), dtype=np.int64)
+        # the side index as min(row + soff[column], side[1]) into the side
+        # line from C index side[0] (the compact form of sidx)
+        soff = np.zeros(dw, dtype=np.int64)
+        side = (int(rs_sym[0]), 0)
         if angle > 0 and p.apply_pdpc:
             scale = p.angular_scale
             nx = min(3 << scale, dw)
             wl[:nx] = 32 >> ((2 * xr[:nx]) >> scale)
             inv_sum = 256 + (xr + 1) * inv_angle
-            s_t = yr[:, None] + (inv_sum >> 9)[None, :] + 1
+            soff = (inv_sum >> 9) + 1
+            s_t = yr[:, None] + soff[None, :]
             sidx_t[:] = np.minimum(s_t, rs_len - 1 if rs_len else 0)
+            side = (l_seg, rs_len - 1)
         groups[is_ver].append(
             dict(mode=m, sym=sym, gi=gi, f=f, wl=wl, rs_sym=rs_sym,
-                 sidx=sidx_t, clip_free=(abs(angle) & 0x1F) == 0
+                 sidx=sidx_t, soff=soff, side=side,
+                 clip_free=(abs(angle) & 0x1F) == 0
                  and not (angle > 0 and p.apply_pdpc))
         )
 
@@ -183,7 +201,9 @@ def _build_mode_tables(w: int, h: int, bit_depth: int):
             sx[i] = r["sidx"]
             modes.append(r["mode"])
         out["ver" if is_ver else "hor"] = dict(
-            modes=modes, sym=sym, rs=rs, gi=gi, f=f, wl=wl, sidx=sx
+            modes=modes, sym=sym, rs=rs, gi=gi, f=f, wl=wl, sidx=sx,
+            soff=np.stack([r["soff"] for r in recs]),
+            side=np.array([r["side"] for r in recs], dtype=np.int64),
         )
     out["lc"] = lc
     return out
@@ -231,11 +251,11 @@ def intra_class_list(cfg) -> list[tuple[int, int]]:
 class ClassConsts:
     """Device tables of one (w, h, bit depth, MIP) class.
 
-    groups: per angular group present, dict(modes, ver, dh, dw, cidx
-      (M, dh, dw, 4) index into C of each filter tap, f (M, dh, 4) taps,
-      wl (M, dw) PDPC weights, scidx (M, dh, dw) index into C of the PDPC
-      side sample), int32 views of `tab`.
-    tab: the tables packed for csrc/rmd.cu, TAB_HEAD ints of header first.
+    groups: per angular group, dict(modes, ver, dh, dw, cidx (M, dh, dw, 4)
+      index into C of each filter tap, f (M, dh, 4) taps, wl (M, dw) PDPC
+      weights, scidx (M, dh, dw) index into C of the PDPC side sample): the
+      plain version's per-sample gather tables.
+    tab: the compact table of csrc/rmd.cu (`_compact_tables`).
     wadj: MIP weights (n_mip, red * red, input_size) int32, or None."""
 
     w: int
@@ -251,11 +271,6 @@ class ClassConsts:
 
 
 _CONSTS: dict = {}
-
-
-def _n_tiles(h: int, w: int) -> int:
-    th, tw = KINDS[satd_kind(h, w)]
-    return (h // th) * (w // tw)
 
 
 def _mip_weights(w: int, h: int) -> np.ndarray:
@@ -278,6 +293,85 @@ def _mip_weights(w: int, h: int) -> np.ndarray:
     return wadj
 
 
+def sym_stride(dh: int, dw: int) -> int:
+    """Entries of a mode's reference line in the compact table: enough for
+    every tap a dh x dw block reads (csrc/rmd.cu:sym_stride)."""
+    return max(dh + dw + 3, 2 * dw + 4)
+
+
+def tab_cap(w: int, h: int) -> int:
+    """The most ints a class's compact table may hold: the shared memory
+    csrc/rmd.cu sets aside for it (tab_cap there)."""
+    return TAB_HEAD + MAX_TAPS + (N_ANG - 4) * (
+        max(sym_stride(h, w), sym_stride(w, h)) + max(w, h) + PDPC_COLS + 2)
+
+
+def _compact_tables(tabs, w: int, h: int) -> np.ndarray:
+    """The class's angular tables in the layout of csrc/rmd.cu.
+
+    Per group (ver: the h x w block; hor: the transposed w x h block), per
+    mode m: sym (sym_stride) the index into C of ref_m[j], the zero slot
+    past the mode's line; rows (dh) rowbase | tap row << 16, so that the
+    taps of sample (r, x) read ref_m[rowbase + x + k]; pdpc (PDPC_COLS)
+    weight | side offset << 8; side (2) base and clamp, the side sample of
+    (r, x) being C[base + min(r + offset, clamp)].  The tap rows (4 signed
+    bytes each) are shared by both groups."""
+    zslot = tabs["lc"] - 1
+    gs = [tabs[g] for g in GROUPS]
+    taps, tap_of = np.unique(np.concatenate([g["f"].reshape(-1, 4) for g in gs]),
+                             axis=0, return_inverse=True)
+    tap_of = tap_of.reshape(-1)
+    if len(taps) > MAX_TAPS or taps.min() < -128 or taps.max() > 127:
+        raise AssertionError(f"class {w}x{h}: taps do not pack")
+    head = np.zeros(TAB_HEAD, np.int64)
+    body = [(taps[:, 3] << 24) | ((taps[:, 2] & 0xFF) << 16)
+            | ((taps[:, 1] & 0xFF) << 8) | (taps[:, 0] & 0xFF)]
+    head[1:3] = len(taps), TAB_HEAD
+    pos, col, t0 = TAB_HEAD + len(taps), 4, 0
+    for gi, g in enumerate(gs):
+        M, dh, dw = g["gi"].shape
+        ls = sym_stride(dh, dw)
+        rowbase = g["gi"][:, :, 0]
+        if (g["gi"] != rowbase[..., None] + np.arange(dw)).any() \
+                or rowbase.min() < 0 or g["gi"].max() + 4 > ls \
+                or g["sym"].shape[1] > ls or g["wl"][:, PDPC_COLS:].any():
+            raise AssertionError(f"class {w}x{h}: tables do not compact")
+        sym = np.full((M, ls), zslot, np.int64)
+        sym[:, :g["sym"].shape[1]] = g["sym"]
+        rows = rowbase | (tap_of[t0:t0 + M * dh].reshape(M, dh) << 16)
+        t0 += M * dh
+        nc = min(dw, PDPC_COLS)
+        pdpc = np.zeros((M, PDPC_COLS), np.int64)
+        pdpc[:, :nc] = g["wl"][:, :nc] | (g["soff"][:, :nc] << 8)
+        parts = (sym, rows, pdpc, g["side"])
+        head[4 + 8 * gi:6 + 8 * gi] = M, col
+        for k, a in enumerate(parts):
+            head[6 + 8 * gi + k] = pos
+            body.append(a.reshape(-1))
+            pos += a.size
+        col += M
+    head[0] = pos
+    if pos > tab_cap(w, h):
+        raise AssertionError(f"class {w}x{h}: {pos} ints > {tab_cap(w, h)}")
+    return np.concatenate([head] + body)
+
+
+def _gather_tables(g, zslot: int, h: int, w: int, is_ver: bool) -> dict:
+    """The plain version's per-sample tables of one group (the reference's
+    gather form)."""
+    sym, L = g["sym"], g["sym"].shape[1]
+    M = len(g["modes"])
+    j = g["gi"][..., None] + np.arange(4)  # (M, dh, dw, 4) index into sym
+    # a tap past the end of the mode's reference row has weight 0 (the
+    # reference's matrix form reads the zero slot there)
+    cidx = np.where(j < L, sym[np.arange(M)[:, None, None, None],
+                               np.minimum(j, L - 1)], zslot)
+    scidx = g["rs"][np.arange(M)[:, None, None], g["sidx"]]
+    return dict(modes=list(g["modes"]), ver=is_ver,
+                dh=h if is_ver else w, dw=w if is_ver else h,
+                cidx=cidx, f=g["f"], wl=g["wl"], scidx=scidx)
+
+
 def class_consts(w: int, h: int, bit_depth: int, with_mip: bool,
                  device) -> ClassConsts:
     """The tables of one class on `device`, built once per process."""
@@ -287,49 +381,23 @@ def class_consts(w: int, h: int, bit_depth: int, with_mip: bool,
     if c is not None:
         return c
     tabs = class_tables(w, h, bit_depth)
-    zslot = tabs["lc"] - 1
-    mode_order = [0, 1, 18, 50]
-    groups, packed, layout = [], [], []
-    head = np.zeros(TAB_HEAD, np.int64)
-    pos = TAB_HEAD
-    for gi, gname in enumerate(GROUPS):
-        g = tabs.get(gname)
-        if g is None:
-            continue
-        is_ver = gname == "ver"
-        dh, dw = (h, w) if is_ver else (w, h)
-        if _n_tiles(dh, dw) != _n_tiles(h, w):
-            # csrc/rmd.cu gives every column the same number of tiles
-            raise AssertionError(f"class {w}x{h}: {gname} tiles differ")
-        sym, L = g["sym"], g["sym"].shape[1]
-        M = len(g["modes"])
-        j = g["gi"][..., None] + np.arange(4)  # (M, dh, dw, 4) index into sym
-        # a tap past the end of the mode's reference row has weight 0 (the
-        # reference's matrix form reads the zero slot there)
-        cidx = np.where(j < L, sym[np.arange(M)[:, None, None, None],
-                                   np.minimum(j, L - 1)], zslot)
-        scidx = g["rs"][np.arange(M)[:, None, None], g["sidx"]]
-        ent = dict(modes=list(g["modes"]), ver=is_ver, dh=dh, dw=dw)
-        head[8 * gi:8 * gi + 4] = (M, dh, dw, len(mode_order))
-        for k, (name, a) in enumerate((("cidx", cidx), ("f", g["f"]),
-                                       ("wl", g["wl"]), ("scidx", scidx))):
-            head[8 * gi + 4 + k] = pos
-            packed.append(a.reshape(-1))
-            layout.append((ent, name, pos, a.shape))
-            pos += a.size
-        groups.append(ent)
-        mode_order.extend(g["modes"])
+    if any(g not in tabs for g in GROUPS):
+        raise AssertionError(f"class {w}x{h}: an angular group is empty")
+    groups = [_gather_tables(tabs[g], tabs["lc"] - 1, h, w, g == "ver")
+              for g in GROUPS]
+    mode_order = [0, 1, 18, 50] + [m for g in groups for m in g["modes"]]
     if len(mode_order) != N_ANG:
         raise AssertionError(f"class {w}x{h}: {len(mode_order)} angular columns")
-    wadj = _mip_weights(w, h) if with_mip else None
-    n_mip = wadj.shape[0] if with_mip else 0
-    tab, *wadj_t = upload([np.concatenate([head] + packed)]
-                          + ([wadj] if with_mip else []), device)
-    for ent, name, off, shape in layout:
-        # the plain version reads the kernel's table through views
-        ent[name] = tab[off:off + int(np.prod(shape))].view(shape)
+    names = ("cidx", "f", "wl", "scidx")
+    arrays = [_compact_tables(tabs, w, h)] + [g[n] for g in groups for n in names]
+    if with_mip:
+        arrays.append(_mip_weights(w, h))
+    dev = upload(arrays, device)
+    for k, g in enumerate(groups):
+        g.update(zip(names, dev[1 + 4 * k:5 + 4 * k]))
+    n_mip = arrays[-1].shape[0] if with_mip else 0
     c = ClassConsts(w, h, bit_depth, with_mip, groups, np.array(mode_order),
-                    tab, wadj_t[0] if with_mip else None, n_mip, N_ANG + 2 * n_mip)
+                    dev[0], dev[-1] if with_mip else None, n_mip, N_ANG + 2 * n_mip)
     _CONSTS[key] = c
     return c
 
@@ -622,6 +690,22 @@ def reduce_cuda(out, n_mip: int):
         KN.launch("vtm_rmd_reduce", dev, out.data_ptr(), P, out.shape[1],
                   2 * n_mip, red.data_ptr())
     return red
+
+
+def kernel_config(w: int, h: int, lib=None) -> dict:
+    """The launch shape of class (w, h)'s two kernels on the current card:
+    {"angular": {...}, "mip": {...}} with the fields of CONFIG_FIELDS
+    (resident blocks from cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    registers and local bytes from cudaFuncGetAttributes).  `lib`: another
+    build of csrc/rmd.cu with the same entry point."""
+    lib = lib or KN.library()
+    buf = (ctypes.c_int * (2 * len(CONFIG_FIELDS)))()
+    err = lib.vtm_rmd_config(w, h, ctypes.cast(buf, ctypes.c_void_p))
+    if err:
+        raise RuntimeError(f"vtm_rmd_config({w}, {h}): CUDA error {err}")
+    n = len(CONFIG_FIELDS)
+    return {k: dict(zip(CONFIG_FIELDS, buf[i * n:(i + 1) * n]))
+            for i, k in enumerate(("angular", "mip"))}
 
 
 def class_costs_cuda(srcpad, xs, ys, consts: ClassConsts, w: int, h: int,

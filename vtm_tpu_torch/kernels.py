@@ -133,6 +133,8 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.vtm_error_string.argtypes = [ctypes.c_int]
             lib.vtm_error_string.restype = ctypes.c_char_p
+            lib.vtm_rmd_config.argtypes = [_I, _I, _P]
+            lib.vtm_rmd_config.restype = ctypes.c_int
             _lib = lib
         return _lib
 
