@@ -10,8 +10,10 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    no CUDA means exit 1 with no result;
 2. build the CUDA kernels of vtm_tpu_torch/csrc from the checkout (nvcc,
    sm_90a, one process per source, in parallel), and print each compiled
-   kernel's registers and spill bytes (ptxas -v; a template instantiation
-   with its arguments); an RMD kernel that spills fails;
+   kernel's registers, spill bytes and static shared bytes (ptxas -v; a
+   template instantiation with its arguments), and the deblocking tile
+   kernels' launch shape (resident blocks an SM); an RMD kernel that spills
+   fails;
 3. each kernel against its plain torch version, exactly:
    - the filter kernels on the real chain inputs of POC 0 of
      testdata/ai_full_hd1080_qp37.bit (1920x1080 4:2:0 8-bit, LMCS +
@@ -21,7 +23,12 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
      of the port's own CUDA decode of testdata/ra_full_bq416_qp37.bit
      (416x240 RA, every inter tool on), and on numpy-seeded batches the
      size of a 1080p 4:2:0 picture;
-   kernel and plain times from CUDA events, on the 1080p inputs;
+   kernel and plain times from CUDA events, on the 1080p inputs: the
+   kernel's device time (`ms`: a spin kernel queued ahead of the start
+   event keeps the host's issue time out of the window; a row that cannot
+   be timed so is printed as host-paced, with the reason) beside the time
+   of the calls as the host issues them (`call_ms`), and its launches in
+   each timed call;
    - the SATD kernel on numpy-seeded differences of every tiling (8- and
      10-bit extremes), 1920x1080 samples per call;
    - the three RMD kernels on every block-size class of a 1920x1080 picture
@@ -67,16 +74,20 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    calls from its tests alone); the encodes' own
    counts, without the decodes that check their streams, prove that the
    encoder's RMD, deblocking, SAO and ALF ran through the kernels;
-7. one JSON line of per-kernel results, then the device line, last.
+7. each kernel's bound line (device and call ms), the redesign order
+   (main-path launches x (device ms - bound ms) per launch of the timed
+   calls), one JSON line of per-kernel results, then the device line, last.
 
     python3 chip_smoke.py --versus DIR
 
-instead times this checkout's RMD kernels against another build of
-csrc/rmd.cu (DIR holds rmd.cu, satd.cuh and common.cuh of another commit,
-e.g. from `git show c2c0a90:vtm_tpu_torch/csrc/rmd.cu`; DIR is built into
-DIR/libversus_rmd.so with the entry points renamed), class by class on the
-1080p source, in one process on one card, in turns (other, this, this,
-other), each result equal to this checkout's.
+instead times this checkout's kernels against another commit's build of
+the same sources, in one process on one card, in turns (other, this, this,
+other), in device ms, each result equal to this checkout's.  DIR holds
+that commit's sources (e.g. from `git show 3762d21:vtm_tpu_torch/csrc/
+deblock.cu`), built into DIR/libversus_*.so with the entry points renamed:
+rmd.cu, satd.cuh and common.cuh time the RMD kernels class by class on
+the 1080p source; deblock.cu and common.cuh time the luma and chroma
+deblocking on POC 0 of the 1080p stream, VER and HOR.
 """
 
 from __future__ import annotations
@@ -183,16 +194,18 @@ def card_line() -> str:
 
 
 def demangle(sym: str) -> str:
-    """An Itanium-mangled kernel name with int template arguments, as
-    `name<4, 8>` (enough for this repo's kernels)."""
+    """An Itanium-mangled kernel name with int or bool template arguments,
+    as `name<4, 8>` or `name<true>` (enough for this repo's kernels)."""
     m = re.match(r"_Z(\d+)(\w+)", sym)
     if not m:
         return sym
     n, rest = int(m.group(1)), m.group(2)
     name, tail = rest[:n], rest[n:]
-    args = re.match(r"I((?:Li\d+E)+)E", tail)
+    args = re.match(r"I((?:L[ib]\d+E)+)E", tail)
     if args:
-        name += "<" + ", ".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+        vals = [v if t == "i" else ("true" if v == "1" else "false")
+                for t, v in re.findall(r"L([ib])(\d+)E", args.group(1))]
+        name += "<" + ", ".join(vals) + ">"
     return name
 
 
@@ -215,12 +228,15 @@ def ptxas_report(diag: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and entry in rows:
             rows[entry]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[entry]["smem_bytes"] = int(smem.group(1)) if smem else 0
     return rows
 
 
 def cuda_ms(torch, fn, iters: int = 10) -> float:
-    """Mean device time of fn() in ms (CUDA events, after up to two
-    warm-up calls)."""
+    """Mean time of fn() in ms between CUDA events around `iters` calls,
+    after up to two warm-up calls.  Host-paced: where the host takes longer
+    to issue a call than the card to run it, this is the host's time."""
     for _ in range(min(2, iters)):
         fn()
     torch.cuda.synchronize()
@@ -232,6 +248,66 @@ def cuda_ms(torch, fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+_SPIN = {}
+
+
+def spin_cycles_per_s(torch) -> float:
+    """Clock cycles a second of the spin kernel (torch.cuda._sleep), from
+    CUDA events around a 20 M-cycle spin (measured once a process)."""
+    if "rate" not in _SPIN:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _SPIN["rate"] = 20_000_000 / (start.elapsed_time(end) / 1e3)
+    return _SPIN["rate"]
+
+
+def device_ms(torch, fn, iters: int = 10) -> tuple[float, str | None]:
+    """Mean device time of fn() in ms, the host's issue time kept outside
+    the window: a spin kernel queued ahead of the start event holds the card
+    until the host has issued all `iters` calls, so the events bracket the
+    calls' device work back to back (warm-up as in cuda_ms).  The spin is
+    sized from the issue loop's host time (at least 4x it, and 1 ms), and
+    checked: the start event must still be pending once the calls are
+    issued.  Else a second try with a spin 8x longer; if that fails too,
+    returns the events' time with the reason the row is host-paced (the
+    wrapper waits on the card, or its issue loop outlasted the spin)."""
+    for _ in range(min(2, iters)):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    bare = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    rate = spin_cycles_per_s(torch)
+    spin = max(4 * bare, 1e-3)
+    for _ in range(2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin * rate))
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        end.record()
+        issued = time.perf_counter() - t0
+        covered = not start.query()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / iters
+        if covered:
+            return ms, None
+        spin *= 8
+    why = ("the wrapper waits on the card" if bare < spin / 16
+           else "its issue loop outlasted the spin")
+    return ms, (f"host-paced: {why} (issue loop {issued * 1e3:.3f} ms, alone "
+                f"{bare * 1e3:.3f} ms, spin {spin / 8 * 1e3:.3f} ms)")
 
 
 def max_err(torch, a, b) -> int:
@@ -267,15 +343,17 @@ def nbytes(*trees) -> int:
 
 
 class KernelCheck:
-    """Per-kernel results: largest deviation from the plain version, the two
-    times, and the bytes and operations of the work, summed over the cases
-    that time the kernel."""
+    """Per-kernel results: largest deviation from the plain version, the
+    times (device-only `ms`, host-paced `call_ms`, the plain version's), the
+    kernel's launches inside the timed calls, and the bytes and operations
+    of the work, summed over the cases that time the kernel."""
 
     def __init__(self, torch):
         self.torch = torch
-        self.last = None  # the last timed comparison: ms, plain_ms, bytes, ops
-        self.rows = {k: dict(max_abs_err=0, ms=0.0, plain_ms=0.0, bytes=0,
-                             ops=0.0, peak=INT32_OPS_PER_S, timed=0)
+        self.last = None  # the last timed comparison: ms, call_ms, plain_ms, bytes, ops
+        self.rows = {k: dict(max_abs_err=0, ms=0.0, call_ms=0.0, plain_ms=0.0,
+                             bytes=0, ops=0.0, peak=INT32_OPS_PER_S, timed=0,
+                             launches=0, paced=[])
                      for k in KERNEL_INFO}
 
     def compare(self, kernel: str, label: str, cuda_fn, plain_fn,
@@ -285,8 +363,12 @@ class KernelCheck:
         bound counted: the bytes of `ins` and of the result, and `ops`
         operations at `peak` per second.  `quiet` prints nothing unless the
         two disagree."""
+        from vtm_tpu_torch import kernels as KN
+
         torch = self.torch
+        before = KN.launch_counts()[kernel]
         got = cuda_fn()
+        per_call = KN.launch_counts()[kernel] - before
         want = plain_fn()
         torch.cuda.synchronize()
         err = max_err(torch, got, want)
@@ -294,16 +376,26 @@ class KernelCheck:
         row["max_abs_err"] = max(row["max_abs_err"], err)
         msg = f"{kernel} [{label}]: max |kernel - plain| = {err}"
         if timed:
-            ms = cuda_ms(torch, cuda_fn, iters)
+            ms, paced = device_ms(torch, cuda_fn, iters)
+            call = cuda_ms(torch, cuda_fn, iters)
+            if paced:  # no device-only time: the row keeps the call's
+                ms = call
             pms = cuda_ms(torch, plain_fn, iters)
             row["ms"] += ms
+            row["call_ms"] += call
             row["plain_ms"] += pms
             row["bytes"] += nbytes(ins, got)
             row["ops"] += ops
             row["peak"] = peak
             row["timed"] += 1
-            self.last = dict(ms=ms, plain_ms=pms, bytes=nbytes(ins, got), ops=ops)
-            msg += f", kernel {ms:.4f} ms, plain {pms:.4f} ms"
+            row["launches"] += per_call
+            if paced:
+                row["paced"].append(f"{label}: {paced}")
+            self.last = dict(ms=ms, call_ms=call, plain_ms=pms,
+                             bytes=nbytes(ins, got), ops=ops)
+            msg += (f", {per_call} launches a call, kernel "
+                    f"{ms:.6f} ms ({paced + '; the call time' if paced else 'device'}), "
+                    f"{call:.6f} ms (call), plain {pms:.6f} ms")
         if err or not quiet:
             print(msg, flush=True)
         if err:
@@ -347,10 +439,11 @@ def check_kernels(torch, chk: KernelCheck, y, cb, cr, lut, dbv, dbh, sao, alf,
                 ins=(y, maps[0:7]), ops=10 * y.numel())
         if hcb or hcr:
             ck = dict(kw, has_l=False, has_cb=hcb, has_cr=hcr)
-            _, cb, cr = chk.compare(
+            # Cb and Cr only: the luma plane passes through unchanged
+            cb, cr = chk.compare(
                 "vtm_deblock_chroma_ver", tag,
-                lambda: DK.deblock_dir_cuda(y, cb, cr, *maps, **ck),
-                lambda: DK.deblock_dir_plain(y, cb, cr, *maps, **ck), timed,
+                lambda: DK.deblock_dir_cuda(y, cb, cr, *maps, **ck)[1:],
+                lambda: DK.deblock_dir_plain(y, cb, cr, *maps, **ck)[1:], timed,
                 ins=(cb, cr, maps[7:17]), ops=10 * (cb.numel() + cr.numel()))
     planes = [y, cb, cr]
     for comp, on in enumerate((s0, s1, s2)):
@@ -667,7 +760,8 @@ def check_rmd(torch, chk: KernelCheck, src, bd: int, label: str, timed: bool,
             reg = (ptxas or {}).get(f"rmd_{kern}_kernel<{w}, {h}>", {})
             parts.append(
                 f"{kern}: {t['ops']:.6g} ops, bound {bound:.6f} ms ({by}), kernel "
-                f"{t['ms']:.6f} ms ({100 * bound / t['ms']:.2f} % of bound), plain "
+                f"{t['ms']:.6f} ms device ({100 * bound / t['ms']:.2f} % of bound), "
+                f"{t['call_ms']:.6f} ms call, plain "
                 f"{t['plain_ms']:.6f} ms; {k['threads']} threads, {k['smem_bytes']} "
                 f"shared bytes, {k['blocks_per_sm']} blocks/SM, "
                 f"{k['positions_per_block']} positions/block, {k['registers']} "
@@ -677,36 +771,75 @@ def check_rmd(torch, chk: KernelCheck, src, bd: int, label: str, timed: bool,
               flush=True)
 
 
-def versus(torch, other: str) -> int:
-    """This checkout's vtm_rmd_angular and vtm_rmd_mip against the build of
-    another rmd.cu in directory `other`, per class of the 1080p source, in
-    turns; prints a line per class and the sums.  The other build gets
-    the packed per-sample table of the kernels before the compact one
-    (commit c2c0a90: (M, dh, dw, col0, offsets of cidx, f, wl, scidx) per
-    group, then the arrays)."""
+def build_other(KN, other: str, source: str, names) -> "ctypes.CDLL":
+    """`source` of directory `other` built into other/libversus_<stem>.so
+    with its entry points renamed versus_* (a build of another commit beside
+    this checkout's library); prints its ptxas lines."""
     import ctypes
 
+    stem = source.split(".")[0]
+    lib_path = os.path.join(other, f"libversus_{stem}.so")
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    res = subprocess.run([nvcc, *KN.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
+                          *(f"-D{n}=versus_{n[4:]}" for n in names), "-o", lib_path,
+                          os.path.join(other, source)],
+                         capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"nvcc failed on {other}/{source}:\n{res.stderr}")
+    for name, r in ptxas_report(res.stderr).items():
+        print(f"  ptxas [{other}]: {name}: {r}", flush=True)
+    return ctypes.CDLL(lib_path)
+
+
+def turns(torch, other_fn, this_fn, iters: int = 10):
+    """Device ms of two builds in turns (other, this, this, other): (other
+    mean, this mean, the four readings); a host-paced reading fails."""
+    t = []
+    for f in (other_fn, this_fn, this_fn, other_fn):
+        ms, paced = device_ms(torch, f, iters)
+        if paced:
+            raise AssertionError(f"versus timing {paced}")
+        t.append(ms)
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def versus(torch, other: str) -> int:
+    """This checkout's kernels against another commit's build of the same
+    sources in directory `other`, in one process on one card: the RMD
+    kernels where `other` holds rmd.cu, the deblocking kernels where it
+    holds deblock.cu."""
     from vtm_tpu_torch import kernels as KN
+
+    print(card_line(), flush=True)
+    for name, r in ptxas_report(KN.build(force=True, ptxas_verbose=True)).items():
+        print(f"  ptxas: {name}: {r}", flush=True)
+    ran = False
+    if os.path.exists(os.path.join(other, "rmd.cu")):
+        versus_rmd(torch, KN, other)
+        ran = True
+    if os.path.exists(os.path.join(other, "deblock.cu")):
+        versus_deblock(torch, KN, other)
+        ran = True
+    if not ran:
+        raise FileNotFoundError(f"{other} holds neither rmd.cu nor deblock.cu")
+    print(card_line(), flush=True)
+    return 0
+
+
+def versus_rmd(torch, KN, other: str) -> None:
+    """vtm_rmd_angular and vtm_rmd_mip against the build of another rmd.cu
+    in `other`, per class of the 1080p source, in turns; prints a line per
+    class and the sums.  The other build gets the packed per-sample table of
+    the kernels before the compact one (commit c2c0a90: (M, dh, dw, col0,
+    offsets of cidx, f, wl, scidx) per group, then the arrays)."""
+    import ctypes
+
     from vtm_tpu_torch import testing as T
     from vtm_tpu_torch.encoder import rmd as RMD
     from vtm_tpu_torch.ops import rdcost as RC
 
-    print(card_line(), flush=True)
-    for name, r in ptxas_report(KN.build(force=True, ptxas_verbose=True)).items():
-        if name.startswith("rmd_"):
-            print(f"  ptxas: {name}: {r}", flush=True)
     names = ("vtm_rmd_angular", "vtm_rmd_mip", "vtm_rmd_reduce")
-    lib_path = os.path.join(other, "libversus_rmd.so")
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    res = subprocess.run([nvcc, *KN.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
-                          *(f"-D{n}=versus_{n[4:]}" for n in names), "-o", lib_path,
-                          os.path.join(other, "rmd.cu")],
-                         capture_output=True, text=True)
-    if res.returncode:
-        raise RuntimeError(f"nvcc failed on {other}/rmd.cu:\n{res.stderr}")
-    for name, r in ptxas_report(res.stderr).items():
-        print(f"  ptxas [{other}]: {name}: {r}", flush=True)
-    lib = ctypes.CDLL(lib_path)
+    lib = build_other(KN, other, "rmd.cu", names)
     for n in names:
         fn = getattr(lib, f"versus_{n[4:]}")
         fn.argtypes = list(KN._SIGNATURES[n])
@@ -744,8 +877,7 @@ def versus(torch, other: str) -> int:
         for kern, (this_fn, other_fn, ncols) in runs.items():
             if other_fn() != 0:
                 raise RuntimeError(f"{other}: {kern} {w}x{h} refused")
-            t = [cuda_ms(torch, f, 5) for f in (other_fn, this_fn, this_fn, other_fn)]
-            o_ms, t_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+            o_ms, t_ms, t = turns(torch, other_fn, this_fn, 5)
             ops = rmd_ops(RC, w, h, P, ncols)
             bound = ops / INT32_OPS_PER_S * 1e3
             for k, v in enumerate((o_ms, t_ms, ops)):
@@ -765,8 +897,108 @@ def versus(torch, other: str) -> int:
         print(f"versus sum {kern}: other {o_ms:.6f} ms, this {t_ms:.6f} ms "
               f"({o_ms / t_ms:.2f}x), op bound {bound:.6f} ms ({100 * bound / t_ms:.2f} "
               f"% this, {100 * bound / o_ms:.2f} % other)", flush=True)
-    print(card_line(), flush=True)
-    return 0
+
+
+def versus_deblock(torch, KN, other: str) -> None:
+    """vtm_deblock_luma_ver and vtm_deblock_chroma_ver against the build of
+    another deblock.cu in `other` (its entry points renamed), on the chain
+    inputs of POC 0 of the 1080p stream, VER then HOR (HOR filters VER's
+    output, as the chain does), in turns (other, this, this, other), in
+    device ms.  The other build's chroma entry takes a plane a launch (the
+    signature of commit 3762d21): its Cb and Cr launches are timed as one
+    call.  Each output must equal the other build's; each row prints its
+    share of the bytes bound for both builds, and the launch shape of this
+    build's tile kernels."""
+    import ctypes
+
+    from vtm_tpu_torch.ops import deblock_kernel as DK
+    from vtm_tpu_torch.ops import filter_chain as FC
+    from vtm_tpu_torch.parallel import multichip as MCH
+
+    names = ("vtm_deblock_luma_ver", "vtm_deblock_chroma_ver",
+             "vtm_deblock_luma_ver_delta")
+    lib = build_other(KN, other, "deblock.cu", names)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for n in names:
+        fn = getattr(lib, f"versus_{n[4:]}")
+        fn.argtypes = list(KN._SIGNATURES[n])
+        fn.restype = ctypes.c_int
+    # the chroma entry of 3762d21 took one plane a call
+    lib.versus_deblock_chroma_ver.argtypes = [P, P, I, I, L, L, *[P] * 7, L, L,
+                                              I, I, I, I, I, P]
+    for name, cfg in DK.kernel_config().items():
+        print(f"  launch shape {name}: {cfg}", flush=True)
+
+    dev = torch.device("cuda")
+    pic = MCH.capture_decode(HD_STREAM, "cuda")["pics"][0]
+    planes, lmcs_lut, dmaps, sao_maps, alf_tables, bd, sx, sy = (pic[k] for k in (
+        "planes", "lmcs_lut", "dmaps", "sao_maps", "alf_tables", "bd", "sx", "sy"))
+    fl = FC.chain_flags(len(planes), lmcs_lut, dmaps, sao_maps, alf_tables)
+    y, cb, cr = (FC.to_device(p, dev) for p in planes)
+    dbv, dbh, _, _ = FC.maps_to_torch(dmaps, sao_maps, alf_tables, dev)
+    if fl[0]:
+        y = FC.to_device(lmcs_lut, dev)[y.long()]
+    stream = torch.cuda.current_stream().cuda_stream
+    sums = {"vtm_deblock_luma_ver": [0.0, 0.0, 0], "vtm_deblock_chroma_ver": [0.0, 0.0, 0]}
+    for hor, maps, (hl, hcb, hcr) in ((False, dbv, fl[1:4]), (True, dbh, fl[4:7])):
+        if not (hl and hcb and hcr):
+            raise AssertionError(f"POC 0 of {HD_STREAM}: a component is not deblocked")
+        kw = dict(bit_depth=bd, hor=hor, sx=sx, sy=sy)
+        lk = dict(kw, has_l=True, has_cb=False, has_cr=False)
+        ck = dict(kw, has_l=False, has_cb=True, has_cr=True)
+        yv, mv = (y.T, maps[0].T) if hor else (y, maps[0])
+        loop_len, dec_line, step = DK._chroma_geometry(hor, sx, sy)
+        pv = cb.T if hor else cb
+        cv = (maps[7].T if hor else maps[7])[:, ::step]
+        o_y, o_cb, o_cr = (torch.full_like(p, -1) for p in (y, cb, cr))
+
+        def other_luma():
+            return lib.versus_deblock_luma_ver(
+                y.data_ptr(), o_y.data_ptr(), *yv.shape, *yv.stride(),
+                *(m.data_ptr() for m in maps[0:7]), *mv.stride(), bd, stream)
+
+        def other_chroma():
+            return max(lib.versus_deblock_chroma_ver(
+                p.data_ptr(), o.data_ptr(), *pv.shape, *pv.stride(),
+                *(m.data_ptr() for m in cm), *(m.data_ptr() for m in maps[13:17]),
+                *cv.stride(), pv.shape[0] // loop_len, pv.shape[1] // 4, loop_len,
+                dec_line, bd, stream)
+                for p, o, cm in ((cb, o_cb, maps[7:10]), (cr, o_cr, maps[10:13])))
+
+        rows = (("vtm_deblock_luma_ver", other_luma,
+                 lambda: DK.deblock_dir_cuda(y, cb, cr, *maps, **lk)[0:1], (o_y,),
+                 (y, maps[0:7])),
+                ("vtm_deblock_chroma_ver", other_chroma,
+                 lambda: DK.deblock_dir_cuda(y, cb, cr, *maps, **ck)[1:], (o_cb, o_cr),
+                 (cb, cr, maps[7:17])))
+        outs = []
+        for name, other_fn, this_fn, theirs, ins in rows:
+            if other_fn() != 0:
+                raise RuntimeError(f"{other}: {name} refused")
+            mine = this_fn()
+            torch.cuda.synchronize()
+            err = max_err(torch, tuple(mine), theirs)
+            if err:
+                raise AssertionError(f"{name} {'HOR' if hor else 'VER'}: this build "
+                                     f"and {other} differ by {err}")
+            o_ms, t_ms, t = turns(torch, other_fn, this_fn)
+            nb = nbytes(ins, mine)
+            bound = nb / BYTES_PER_S * 1e3
+            for k, v in enumerate((o_ms, t_ms, nb)):
+                sums[name][k] += v
+            print(f"versus {name} {'HOR' if hor else 'VER'}: other {o_ms:.6f} ms, this "
+                  f"{t_ms:.6f} ms ({o_ms / t_ms:.2f}x; turns "
+                  f"{', '.join(f'{x:.6f}' for x in t)}), {nb} bytes, bound {bound:.6f} ms "
+                  f"({100 * bound / t_ms:.2f} % this, {100 * bound / o_ms:.2f} % other), "
+                  f"outputs equal", flush=True)
+            outs.append(mine)
+        (y,), (cb, cr) = outs
+    for name, (o_ms, t_ms, nb) in sums.items():
+        bound = nb / BYTES_PER_S * 1e3
+        print(f"versus sum {name} (VER + HOR): other {o_ms:.6f} ms, this {t_ms:.6f} ms "
+              f"({o_ms / t_ms:.2f}x), {nb} bytes, bound {bound:.6f} ms "
+              f"({100 * bound / t_ms:.2f} % this, {100 * bound / o_ms:.2f} % other)",
+              flush=True)
 
 
 def check_transforms(torch, chk: KernelCheck, dev, seed: int = 17):
@@ -1114,6 +1346,7 @@ def main() -> int:
     from vtm_tpu_torch import testing as T
     from vtm_tpu_torch.decoder.declib import Decoder
     from vtm_tpu_torch.encoder.enc_lib import IntraEncoder
+    from vtm_tpu_torch.ops import deblock_kernel as DK
     from vtm_tpu_torch.ops import filter_chain as FC
     from vtm_tpu_torch.ops import mc_kernel as MK
     from vtm_tpu_torch.ops import refine_kernel as RK
@@ -1132,6 +1365,8 @@ def main() -> int:
               if n.startswith("rmd_") and (r.get("spill_stores") or r.get("spill_loads"))]
     if spills:
         raise AssertionError(f"RMD kernels spill: {spills}")
+    for name, cfg in DK.kernel_config().items():
+        print(f"  launch shape {name}: {cfg}", flush=True)
 
     # 3. kernels against their plain versions
     chk = KernelCheck(torch)
@@ -1238,20 +1473,26 @@ def main() -> int:
         print(f"bound {name}: {row['bytes']} bytes / {BYTES_PER_S:.4g} B/s = "
               f"{row['bytes'] / BYTES_PER_S * 1e3:.6f} ms; {row['ops']:.6g} ops / "
               f"{row['peak']:.4g} op/s = {row['ops'] / row['peak'] * 1e3:.6f} ms; "
-              f"kernel {row['ms']:.6f} ms", flush=True)
+              f"kernel {row['ms']:.6f} ms device, {row['call_ms']:.6f} ms call; "
+              f"{row['launches']} launches in {row['timed']} timed calls", flush=True)
+        for why in row["paced"]:
+            print(f"  {name} {why}", flush=True)
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=counts[name],
                             max_abs_err=row["max_abs_err"], ms=row["ms"],
-                            plain_ms=row["plain_ms"], bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=None))
+                            call_ms=row["call_ms"], plain_ms=row["plain_ms"],
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
     # what a redesign of each kernel could save on the main paths at most:
-    # launches x (time - bound) per timed call
-    gaps = sorted(((k["launches"] * (k["ms"] - k["bound_ms"]) / chk.rows[k["name"]]["timed"],
-                    k["name"]) for k in kernels if chk.rows[k["name"]]["timed"]),
-                  reverse=True)
-    print("redesign order, launches x (ms - bound ms) per timed call: " + ", ".join(
-        f"{name} {gap:.6f} ms ({chk.rows[name]['timed']} timed calls)" for gap, name in gaps),
-        flush=True)
+    # main-path launches x (device ms - bound ms) per launch of the timed calls
+    order = []
+    for k in kernels:
+        n = chk.rows[k["name"]]["launches"]
+        if n:
+            per, bound = k["ms"] / n, k["bound_ms"] / n
+            order.append((k["launches"] * (per - bound), k["name"], per, bound))
+    print("redesign order, main-path launches x (device ms - bound ms) per launch: "
+          + ", ".join(f"{name} {gap:.6f} ms ({per:.6f} ms a launch, bound {bound:.6f} ms)"
+                      for gap, name, per, bound in sorted(order, reverse=True)), flush=True)
     torch.cuda.synchronize()
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -33,7 +33,9 @@
 #define __shared__ static  // one copy for the block that runs
 #define __constant__
 #define __launch_bounds__(...)
+#define __align__(n) __attribute__((aligned(n)))
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
+struct alignas(16) int4 { int x, y, z, w; };
 struct uint3 { unsigned x, y, z; };
 inline thread_local uint3 threadIdx;
 inline thread_local uint3 blockIdx;
@@ -61,7 +63,7 @@ typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaMemcpyDeviceToDevice = 3,
        cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-struct cudaFuncAttributes { int numRegs = 0; size_t localSizeBytes = 0; };
+struct cudaFuncAttributes { int numRegs = 0; size_t localSizeBytes = 0, sharedSizeBytes = 0; };
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(int) { return "emu"; }
 inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) { memset(p, v, n); return 0; }
@@ -85,17 +87,18 @@ void emu_launch(K kernel, dim3 grid, dim3 block, size_t, A... args) {
   emu_warp_bars.clear();
   for (unsigned w = 0; w < n; w += 32)
     emu_warp_bars.push_back(std::make_unique<std::barrier<>>(std::min(32u, n - w)));
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      std::barrier<> bar(n);
-      emu_bar = &bar;
-      std::vector<std::thread> ts;
-      for (unsigned t = 0; t < n; ++t)
-        ts.emplace_back([&, t] {
-          blockIdx = {bx, by, 0};
-          threadIdx = {t % block.x, (t / block.x) % block.y, t / (block.x * block.y)};
-          kernel(args...);
-        });
-      for (auto& th : ts) th.join();
-    }
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx) {
+        std::barrier<> bar(n);
+        emu_bar = &bar;
+        std::vector<std::thread> ts;
+        for (unsigned t = 0; t < n; ++t)
+          ts.emplace_back([&, t] {
+            blockIdx = {bx, by, bz};
+            threadIdx = {t % block.x, (t / block.x) % block.y, t / (block.x * block.y)};
+            kernel(args...);
+          });
+        for (auto& th : ts) th.join();
+      }
 }

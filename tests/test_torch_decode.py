@@ -80,7 +80,26 @@ AI_STREAMS = [
     "ai444_screen_qp32",
     "ai10_small208_qp32",
     "ai_sclaps_small208_qp32",
+    # 10-bit source, adaptive QP, dependent quantisation, QP 27 at 416x240,
+    # HRD / VUI, minimal tools, scaling lists, slices, tiles, every intra
+    # tool, WPP
+    "ai10src_small208_qp27",
+    "ai_aqp_small208_qp32",
+    "ai_dq_tiny64_qp32",
+    "ai_full_bq416_qp27",
+    "ai_hrdvui_small208_qp32",
+    "ai_min_small208_qp32",
+    "ai_min_tiny64_qp37",
+    "ai_sclist_small208_qp32",
+    "ai_slices_bq416_qp32",
+    "ai_tiles_bq416_qp32",
+    "ai_tools_small208_qp27",
+    "ai_tools_tiny64_qp32",
+    "ai_wpp_small208_qp32",
 ]
+# golden streams that no port test held before the tolerant-decode repair:
+# each decodes to vtm_tpu's pictures too
+REFERENCE_STREAMS = AI_STREAMS[8:] + ["sc_plt_ai_qp27"]
 
 
 @pytest.mark.parametrize("name", AI_STREAMS)
@@ -88,6 +107,17 @@ def test_decode_hash_exact(name):
     dec, pics = decode_port(name)
     assert all(isinstance(p.planes[0], np.ndarray) for p in pics)
     assert all(p.device_planes[0].device.type == "cpu" for p in pics)
+
+
+@pytest.mark.parametrize("name", REFERENCE_STREAMS)
+def test_decode_equals_reference(name):
+    """The port's pictures equal vtm_tpu's decode of the same stream."""
+    _, pics = decode_port(name)
+    ref = ref_declib.Decoder().decode_stream(read(name))
+    assert [p.poc for p in pics] == [p.poc for p in ref]
+    for p, r in zip(pics, ref):
+        for a, b in zip(p.planes, r.planes):
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.slow

@@ -1,5 +1,5 @@
-"""The SATD and RMD CUDA sources, built for the CPU by the test-support
-emulation of tests/_emu, against their plain torch versions.
+"""The SATD, RMD and deblocking CUDA sources, built for the CPU by the
+test-support emulation of tests/_emu, against their plain torch versions.
 
 No card and no nvcc here, so the kernels themselves run on the chip only
 (chip_smoke.py and the `cuda` tests hold them to the plain versions there).
@@ -8,7 +8,10 @@ table, the shared-memory layout, the warp SATD (its shuffles emulated), the
 native column order, the transposed hor group, MIP's upsampling, the
 reduction's first argmin — one std::thread per CUDA thread, on a few
 positions of every class, and on strips of positions that fill one block
-and end part-way into the next.  Tolerance 0.
+and end part-way into the next; and the deblocking tiles (halos, decisions
+in shared memory, Cb and Cr in one launch) through the port's own wrappers
+on planes of several tiles each way with ragged right and bottom tiles.
+Tolerance 0.
 """
 
 import os
@@ -20,8 +23,10 @@ import torch
 
 from vtm_tpu.encoder.enc_lib import EncoderConfig
 from vtm_tpu.encoder.rmd_tpu import intra_class_list
+from vtm_tpu_torch import kernels as KN
 from vtm_tpu_torch import testing as T
 from vtm_tpu_torch.encoder import rmd as RMD
+from vtm_tpu_torch.ops import deblock_kernel as DK
 from vtm_tpu_torch.ops import rdcost as RC
 
 PIC_H, PIC_W = 80, 96
@@ -34,7 +39,8 @@ def lib(tmp_path_factory):
         pytest.skip("the CPU emulation of the CUDA sources needs g++")
     from _emu import build
 
-    return build.load(str(tmp_path_factory.mktemp("emu")), ["rdcost.cu", "rmd.cu"])
+    return build.load(str(tmp_path_factory.mktemp("emu")),
+                      ["rdcost.cu", "rmd.cu", "deblock.cu"])
 
 
 def test_satd_batch(lib):
@@ -131,3 +137,90 @@ def test_rmd_refuses_other_classes(lib):
                            out.data_ptr(), c.ncols, None) != 0
     with pytest.raises(RuntimeError, match="vtm_rmd_config"):
         RMD.kernel_config(64, 8, lib)
+
+
+# deblocking: a luma plane of 2 x 9 VER tiles (128 columns x 16 rows) and
+# 7 x 3 HOR tiles (32 columns x 64 rows), the last ones ragged; chroma tiles
+# are 64 x 32 and 32 x 64, several each way and ragged in every format
+DB_H, DB_W = 136, 200
+
+
+@pytest.fixture
+def emu_launch(lib, monkeypatch):
+    """The wrappers' launches go to the emulated library (CPU tensors)."""
+    def launch(name, device, *args):
+        err = getattr(lib, name)(*args, None)
+        if err:
+            raise RuntimeError(f"{name}: error {err}")
+    monkeypatch.setattr(KN, "launch", launch)
+
+
+def _deblock_maps(rng, bd, hor, shift):
+    """testing.deblock_maps with the active edges moved `shift` map steps
+    off the 16-sample grid: still 16 luma samples apart, so no two edges
+    write one sample, but with shift 1 and 3 on the tiles' halo edges x0+TA+4
+    and x0-4 (with 0 on the tile borders)."""
+    maps = list(T.deblock_maps(rng, DB_H, DB_W, bd, hor))
+    r, c = np.mgrid[0:DB_H // 4, 0:DB_W // 4]
+    grid = (r if hor else c) % 4 == shift
+    for i in (0, 7, 10):  # the luma, Cb and Cr activity maps
+        maps[i] = (rng.random(grid.shape) < 0.85) & grid
+    return [torch.from_numpy(np.ascontiguousarray(m)) for m in maps]
+
+
+@pytest.mark.parametrize("hor", [False, True])
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("fmt", ["420", "422", "444"])
+def test_deblock_dir(emu_launch, fmt, bd, hor):
+    """vtm_deblock_luma_ver and vtm_deblock_chroma_ver (Cb and Cr in one
+    launch, and Cb alone) against deblock_dir_plain, with edges on the tile
+    borders and on the halo edges."""
+    rng = np.random.default_rng(100 * bd + 10 * hor + len(fmt))
+    sx, sy = T.FORMATS[fmt]
+    y, cb, cr = (torch.from_numpy(p) for p in T.planes(rng, DB_H, DB_W, fmt, bd))
+    for shift in (0, 1, 3):
+        maps = _deblock_maps(rng, bd, hor, shift)
+        for has_cr in (True, False) if shift == 0 else (True,):
+            kw = dict(bit_depth=bd, hor=hor, has_l=True, has_cb=True,
+                      has_cr=has_cr, sx=sx, sy=sy)
+            got = DK.deblock_dir_cuda(y, cb, cr, *maps, **kw)
+            want = DK.deblock_dir_plain(y, cb, cr, *maps, **kw)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.numpy(), w.numpy())
+        assert not torch.equal(want[0], y), "no luma edge was filtered"
+        step = DK._chroma_geometry(hor, sx, sy)[2]  # luma map steps a chroma edge
+        assert shift % step or not torch.equal(want[1], cb), "no chroma edge was filtered"
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("loop_len,dec_line", [(2, 1), (4, 3)])
+def test_deblock_chroma_ver(emu_launch, loop_len, dec_line, aligned):
+    """The single-plane entry (null second plane) on maps of the chroma
+    segment grid, against chroma_ver_core; also on a plane 4 bytes off a
+    16-byte boundary (sample loads and stores, no vectors)."""
+    rng = np.random.default_rng(loop_len)
+    hc, wc = DB_H // 2, DB_W // 2
+    buf = torch.empty(hc * wc + 4, dtype=torch.int32)
+    plane = buf[0 if aligned else 1:][:hc * wc].view(hc, wc)
+    plane.copy_(torch.from_numpy(T.plane(rng, hc, wc, 10)))
+    assert (plane.data_ptr() % 16 == 0) == aligned
+    full = T.deblock_maps(rng, hc // loop_len * 4, wc, 10, False)
+    maps = [torch.from_numpy(np.ascontiguousarray(m)) for m in full[7:10] + full[13:17]]
+    got = DK._chroma_seg_cuda([plane], [maps[:3]], maps[3:], maps[0], 10, False,
+                              loop_len, dec_line)[0]
+    want = DK.chroma_ver_core(plane, *maps, 10, loop_len, dec_line)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert not torch.equal(want, plane)
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_deblock_luma_ver_delta(emu_launch, bd):
+    """The delta form over an 8-column-extended shard, against
+    luma_ver_delta_plain."""
+    rng = np.random.default_rng(40 + bd)
+    pad = torch.from_numpy(T.plane(rng, DB_H, DB_W + 16, bd))
+    maps = [torch.from_numpy(m) for m in T.deblock_maps(rng, DB_H, DB_W, bd, False)[:7]]
+    got = DK.luma_ver_delta_cuda(pad, *maps, bd)
+    want = DK.luma_ver_delta_plain(pad, *maps, bd)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert want.any()

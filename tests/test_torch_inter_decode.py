@@ -47,9 +47,10 @@ INTER_STREAMS = [
     "ra_full_small208_qp32",
 ]
 # weighted prediction, IBC (inter, all-intra, with palette, 4:4:4 with
-# ACT), 10-bit RA, WPP and the flagship
+# ACT), palette alone, 10-bit RA, WPP and the flagship
 MORE_STREAMS = ["wp_fade_ldb_qp32", "sc_ibc_ldb_qp32", "sc_ibc_ai_qp27",
-                "sc_ibc_full_ai_qp32", "sc_ibcplt_ai_qp32", "act444_screen_qp32",
+                "sc_ibc_full_ai_qp32", "sc_ibcplt_ai_qp32", "sc_plt_ai_qp27",
+                "act444_screen_qp32",
                 "ra10_small208_qp32", "ld_wpp_small208_qp32",
                 "ra_wpp_bq416_qp37", FLAGSHIP]
 

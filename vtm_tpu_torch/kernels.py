@@ -36,8 +36,9 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "vtm_deblock_luma_ver": (_P, _P, _I, _I, _LL, _LL, _P, _P, _P, _P, _P,
                              _P, _P, _LL, _LL, _I, _P),
-    "vtm_deblock_chroma_ver": (_P, _P, _I, _I, _LL, _LL, _P, _P, _P, _P, _P,
-                               _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _P),
+    "vtm_deblock_chroma_ver": (_P, _P, _P, _P, _I, _I, _LL, _LL, _P, _P, _P,
+                               _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I,
+                               _I, _I, _I, _P),
     "vtm_deblock_luma_ver_delta": (_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                                    _I, _P),
     "vtm_sao_apply": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -135,6 +136,8 @@ def library() -> ctypes.CDLL:
             lib.vtm_error_string.restype = ctypes.c_char_p
             lib.vtm_rmd_config.argtypes = [_I, _I, _P]
             lib.vtm_rmd_config.restype = ctypes.c_int
+            lib.vtm_deblock_config.argtypes = [_P]
+            lib.vtm_deblock_config.restype = ctypes.c_int
             _lib = lib
         return _lib
 

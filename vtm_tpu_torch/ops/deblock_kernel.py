@@ -6,8 +6,9 @@ in picture orientation, static flags) and returns the filtered planes.
 
 * CPU tensors: `deblock_dir_plain`, a line-by-line translation of the jax
   kernel (dense over the segment grid: `luma_ver_delta`, `chroma_ver_core`).
-* CUDA tensors: csrc/deblock.cu, one launch per filtered component; HOR
-  passes the transposed strides of the planes and maps instead of copying.
+* CUDA tensors: csrc/deblock.cu, one launch for luma and one for Cb and Cr
+  together; HOR passes the transposed strides of the planes and maps
+  instead of copying (the kernels tile the plane in its own layout).
 
 `luma_ver_delta` (deblock_kernel.py:68) is also an entry of its own, for
 width sharding: the deltas over a plane extended by 8 columns each side
@@ -15,6 +16,8 @@ width sharding: the deltas over a plane extended by 8 columns each side
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -360,32 +363,58 @@ def _luma_cuda(y, maps, bit_depth, hor):
     return out
 
 
-def _chroma_cuda(plane, comp_maps, shared_maps, bit_depth, hor, sx, sy):
+def _chroma_cuda(planes, comp_maps, shared_maps, bit_depth, hor, sx, sy):
     loop_len, dec_line, step = _chroma_geometry(hor, sx, sy)
-    mv = (comp_maps[0].T if hor else comp_maps[0])[:, ::step]
-    return _chroma_seg_cuda(plane, comp_maps, shared_maps, mv, bit_depth, hor,
+    mv = (comp_maps[0][0].T if hor else comp_maps[0][0])[:, ::step]
+    return _chroma_seg_cuda(planes, comp_maps, shared_maps, mv, bit_depth, hor,
                             loop_len, dec_line)
 
 
-def _chroma_seg_cuda(plane, comp_maps, shared_maps, mv, bit_depth, hor,
+def _chroma_seg_cuda(planes, comp_maps, shared_maps, mv, bit_depth, hor,
                      loop_len, dec_line):
-    """Chroma edges of `plane` with the maps read through `mv`'s view (the
-    segment grid: picture orientation of `plane`, strided as given)."""
-    dev = plane.device
-    KN.check(plane, "chroma plane", torch.int32, dev)
-    pv = plane.T if hor else plane
+    """Chroma edges of one or two planes of one shape (Cb and Cr: one
+    launch), each with its (act, tc, beta) of `comp_maps`, the maps read
+    through `mv`'s view (the segment grid: picture orientation of the
+    planes, strided as given)."""
+    dev = planes[0].device
+    for p in planes:
+        KN.check(p, "chroma plane", torch.int32, dev, planes[0].shape)
+    pv = planes[0].T if hor else planes[0]
     Hc, Wc = pv.shape
     Hs, Ws = Hc // loop_len, Wc // 4
     if tuple(mv.shape) != (Hs, Ws):
         raise ValueError(f"chroma maps give a {tuple(mv.shape)} segment grid, "
                          f"the plane needs {(Hs, Ws)}")
-    out = torch.empty_like(plane)
-    KN.launch("vtm_deblock_chroma_ver", dev,
-              plane.data_ptr(), out.data_ptr(), Hc, Wc, *pv.stride(),
-              *(m.data_ptr() for m in comp_maps),
+    outs = [torch.empty_like(p) for p in planes]
+    io = [(p.data_ptr(), o.data_ptr()) for p, o in zip(planes, outs)]
+    comp = [tuple(m.data_ptr() for m in cm) for cm in comp_maps]
+    if len(planes) == 1:
+        io.append((None, None))
+        comp.append((None, None, None))
+    KN.launch("vtm_deblock_chroma_ver", dev, *io[0], *io[1], Hc, Wc,
+              *pv.stride(), *comp[0], *comp[1],
               *(m.data_ptr() for m in shared_maps), *mv.stride(),
               Hs, Ws, loop_len, dec_line, bit_depth)
-    return out
+    return outs
+
+
+CONFIG_FIELDS = ("threads", "smem_bytes", "registers", "blocks_per_sm", "local_bytes")
+TILE_KERNELS = ("luma_tile_kernel<false>", "luma_tile_kernel<true>",
+                "chroma_tile_kernel<false>", "chroma_tile_kernel<true>")
+
+
+def kernel_config() -> dict:
+    """The launch shape of the four tile kernels of csrc/deblock.cu (VER and
+    HOR, luma and chroma) on the current card: {kernel: {CONFIG_FIELDS}}
+    (registers and static shared bytes from cudaFuncGetAttributes, resident
+    blocks from cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    n = len(CONFIG_FIELDS)
+    buf = (ctypes.c_int * (n * len(TILE_KERNELS)))()
+    err = KN.library().vtm_deblock_config(ctypes.cast(buf, ctypes.c_void_p))
+    if err:
+        raise RuntimeError(f"vtm_deblock_config: CUDA error {err}")
+    return {k: dict(zip(CONFIG_FIELDS, buf[i * n:(i + 1) * n]))
+            for i, k in enumerate(TILE_KERNELS)}
 
 
 def luma_ver_delta_cuda(pad, active, tc, beta, max_p, max_q, no_p, no_q,
@@ -423,10 +452,13 @@ def deblock_dir_cuda(y, cb, cr, *maps, bit_depth: int, hor: bool,
                  dev, (H // 4, W // 4))
     if has_l:
         y = _luma_cuda(y, maps[0:7], bit_depth, hor)
-    if has_cb:
-        cb = _chroma_cuda(cb, maps[7:10], maps[13:17], bit_depth, hor, sx, sy)
-    if has_cr:
-        cr = _chroma_cuda(cr, maps[10:13], maps[13:17], bit_depth, hor, sx, sy)
+    on = [(p, m) for p, m, o in ((cb, maps[7:10], has_cb), (cr, maps[10:13], has_cr))
+          if o]
+    if on:
+        outs = iter(_chroma_cuda([p for p, _ in on], [m for _, m in on],
+                                 maps[13:17], bit_depth, hor, sx, sy))
+        cb = next(outs) if has_cb else cb
+        cr = next(outs) if has_cr else cr
     return y, cb, cr
 
 
@@ -471,8 +503,8 @@ def deblock_chroma_ver(plane, active, tc, beta, large, no_p, no_q, hor_ctb,
         KN.check(m, f"chroma map {i}", torch.int32 if i in (1, 2) else torch.bool,
                  plane.device, (Hc // loop_len, Wc // 4))
     if pick(plane, True, False):
-        return _chroma_seg_cuda(plane, (active, tc, beta),
+        return _chroma_seg_cuda([plane], [(active, tc, beta)],
                                 (large, no_p, no_q, hor_ctb), active, bit_depth,
-                                False, loop_len, dec_line)
+                                False, loop_len, dec_line)[0]
     return chroma_ver_core(plane, active, tc, beta, large, no_p, no_q, hor_ctb,
                            bit_depth, loop_len, dec_line)
