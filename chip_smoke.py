@@ -10,10 +10,11 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    no CUDA means exit 1 with no result;
 2. build the CUDA kernels of vtm_tpu_torch/csrc from the checkout (nvcc,
    sm_90a, one process per source, in parallel), and print each compiled
-   kernel's registers, spill bytes and static shared bytes (ptxas -v; a
-   template instantiation with its arguments), and the deblocking tile
-   kernels' launch shape (resident blocks an SM); an RMD kernel that spills
-   fails;
+   kernel's registers, stack frame, spill bytes and static shared bytes
+   (ptxas -v; a template instantiation with its arguments), and the
+   deblocking tile kernels' launch shape (resident blocks an SM); an RMD
+   kernel that spills, or an MC or ALF-filter kernel with a stack frame or
+   spills, fails;
 3. each kernel against its plain torch version, exactly:
    - the filter kernels on the real chain inputs of POC 0 of
      testdata/ai_full_hd1080_qp37.bit (1920x1080 4:2:0 8-bit, LMCS +
@@ -87,7 +88,9 @@ that commit's sources (e.g. from `git show 3762d21:vtm_tpu_torch/csrc/
 deblock.cu`), built into DIR/libversus_*.so with the entry points renamed:
 rmd.cu, satd.cuh and common.cuh time the RMD kernels class by class on
 the 1080p source; deblock.cu and common.cuh time the luma and chroma
-deblocking on POC 0 of the 1080p stream, VER and HOR.
+deblocking on POC 0 of the 1080p stream, VER and HOR; mc.cu, fir.cuh and
+common.cuh time the MC tiles on phase 3's 1080p-sized seeded batches;
+alf.cu and common.cuh time the ALF filter on POC 0's Y, Cb and Cr.
 """
 
 from __future__ import annotations
@@ -160,6 +163,13 @@ MESH_KERNELS = ("vtm_inv_transform", "vtm_recon_sse",
                 "vtm_deblock_luma_ver_delta", "vtm_sao_apply_ext",
                 "vtm_alf_classify", "vtm_alf_filter", "vtm_mc_tiles",
                 "vtm_deblock_luma_ver", "vtm_deblock_chroma_ver", "vtm_sao_apply")
+# kernel -> ptxas counts that must be 0 (phase 2): the redesigned kernels keep
+# every value in registers or shared memory
+NO_LOCAL_MEMORY = {
+    **dict.fromkeys(("rmd_angular_kernel", "rmd_mip_kernel", "rmd_reduce_kernel"),
+                    ("spill_stores", "spill_loads")),
+    **dict.fromkeys(("mc_tiles_kernel", "alf_filter_kernel"),
+                    ("spill_stores", "spill_loads", "stack_frame"))}
 # runs of each sharded stage whose host seconds are compared (median)
 REPEATS = 7
 TRANSFORM_KINDS = ((0, 0), (2, 1), (1, 2), (2, 2), (1, 1))
@@ -210,7 +220,8 @@ def demangle(sym: str) -> str:
 
 
 def ptxas_report(diag: str) -> dict:
-    """{kernel: {registers, spill_stores, spill_loads}} from nvcc -Xptxas -v."""
+    """{kernel: {registers, smem_bytes, stack_frame, spill_stores,
+    spill_loads}} from nvcc -Xptxas -v."""
     rows, prop, entry = {}, None, None
     for line in diag.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -222,9 +233,11 @@ def ptxas_report(diag: str) -> dict:
         if m:
             prop = demangle(m.group(1))
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and prop in rows:
-            rows[prop].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            rows[prop].update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                              spill_loads=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
         if m and entry in rows:
             rows[entry]["registers"] = int(m.group(1))
@@ -595,11 +608,30 @@ def check_inter_recorded(chk: KernelCheck, got, MK, RK):
                     lambda: RK.bdof_blend_batch_plain(*args, **kw))
 
 
+def mc_1080p_cases(MK, rng, dev, bd: int = 8):
+    """(label, planes, jobs, kw) of the MC batches the size of a 1080p 4:2:0
+    picture, numpy-seeded from `rng`: 129,600 luma 4x4 tiles over 4
+    reference planes of 1920x1080, 2 x 129,600 chroma 2x2 tiles over 4 of
+    960x540, covering the planes in raster order, MVs off every edge."""
+    import numpy as np
+
+    from vtm_tpu_torch import testing as T
+    from vtm_tpu_torch.ops.filter_chain import to_device
+
+    for lum, (h, w), n in ((True, (1080, 1920), 129_600),
+                           (False, (540, 960), 2 * 129_600)):
+        refs = np.stack([T.plane(rng, h, w, bd) for _ in range(4)])
+        planes = list(to_device(refs, dev))
+        jobs = [to_device(a, dev) for a in T.mc_tiles_case(rng, refs, n, lum, bd, cover=True)]
+        taps, tile = MK.SHAPES[lum]
+        yield (f"1080p seeded {'luma' if lum else 'chroma'}, {n} tiles", planes, jobs,
+               dict(taps=taps, tile=tile, bd=bd))
+
+
 def check_inter_1080p(chk: KernelCheck, MK, RK, dev, seed: int = 9):
     """The four inter kernels on numpy-seeded batches the size of a 1080p
-    4:2:0 picture, timed: 129,600 luma 4x4 tiles over 4 reference planes
-    of 1920x1080, 2 x 129,600 chroma 2x2 tiles over 4 of 960x540, and
-    8,100 16x16 sub-PUs for the DMVR search, the luma FIR and BDOF."""
+    4:2:0 picture, timed: the MC batches of `mc_1080p_cases`, and 8,100
+    16x16 sub-PUs for the DMVR search, the luma FIR and BDOF."""
     import numpy as np
 
     from vtm_tpu_torch import testing as T
@@ -611,20 +643,14 @@ def check_inter_1080p(chk: KernelCheck, MK, RK, dev, seed: int = 9):
     def d(a):
         return to_device(a, dev)
 
-    for lum, (h, w), n in ((True, (1080, 1920), 129_600),
-                           (False, (540, 960), 2 * 129_600)):
-        refs = np.stack([T.plane(rng, h, w, bd) for _ in range(4)])
-        drefs = list(d(refs))
-        args = [d(a) for a in T.mc_tiles_case(rng, refs, n, lum, bd, cover=True)]
-        taps, tile = MK.SHAPES[lum]
-        kw = dict(taps=taps, tile=tile, bd=bd)
+    for label, planes, jobs, kw in mc_1080p_cases(MK, rng, dev, bd):
+        n, tile, taps = jobs[0].shape[0], kw["tile"], kw["taps"]
         # separable FIR: (tile + taps - 1) x tile + tile x tile taps a tile
         macs = n * ((tile + taps - 1) * tile + tile * tile) * taps
-        chk.compare("vtm_mc_tiles",
-                    f"1080p seeded {'luma' if lum else 'chroma'}, {n} tiles",
-                    lambda: MK.mc_tiles_cuda(drefs, *args, **kw),
-                    lambda: MK.mc_tiles_plain(drefs, *args, **kw), timed=True,
-                    ins=(drefs, args), ops=macs)
+        chk.compare("vtm_mc_tiles", label,
+                    lambda: MK.mc_tiles_cuda(planes, *jobs, **kw),
+                    lambda: MK.mc_tiles_plain(planes, *jobs, **kw), timed=True,
+                    ins=(planes, jobs), ops=macs)
     label = "1080p seeded, 8100 16x16"
     kw = dict(bd=bd, dx=16, dy=16)
     args = [d(a) for a in T.dmvr_case(rng, 8100, 16, 16, bd)]
@@ -805,25 +831,166 @@ def turns(torch, other_fn, this_fn, iters: int = 10):
 
 def versus(torch, other: str) -> int:
     """This checkout's kernels against another commit's build of the same
-    sources in directory `other`, in one process on one card: the RMD
-    kernels where `other` holds rmd.cu, the deblocking kernels where it
-    holds deblock.cu."""
+    sources in directory `other`, in one process on one card: the kernels
+    of each of rmd.cu, deblock.cu, mc.cu and alf.cu that `other` holds."""
     from vtm_tpu_torch import kernels as KN
 
     print(card_line(), flush=True)
     for name, r in ptxas_report(KN.build(force=True, ptxas_verbose=True)).items():
         print(f"  ptxas: {name}: {r}", flush=True)
-    ran = False
-    if os.path.exists(os.path.join(other, "rmd.cu")):
-        versus_rmd(torch, KN, other)
-        ran = True
-    if os.path.exists(os.path.join(other, "deblock.cu")):
-        versus_deblock(torch, KN, other)
-        ran = True
+    runs = {"rmd.cu": versus_rmd, "deblock.cu": versus_deblock, "mc.cu": versus_mc,
+            "alf.cu": versus_alf}
+    ran = [src for src in runs if os.path.exists(os.path.join(other, src))]
     if not ran:
-        raise FileNotFoundError(f"{other} holds neither rmd.cu nor deblock.cu")
+        raise FileNotFoundError(f"{other} holds none of {', '.join(runs)}")
+    for src in ran:
+        runs[src](torch, KN, other)
     print(card_line(), flush=True)
     return 0
+
+
+def other_entries(KN, other: str, source: str, names):
+    """The renamed entry points `names` of `other`'s build of `source`, with
+    this checkout's ctypes signatures."""
+    import ctypes
+
+    lib = build_other(KN, other, source, names)
+    fns = []
+    for n in names:
+        fn = getattr(lib, f"versus_{n[4:]}")
+        fn.argtypes = list(KN._SIGNATURES[n])
+        fn.restype = ctypes.c_int
+        fns.append(fn)
+    return lib, fns
+
+
+def versus_row(torch, other: str, name: str, label: str, other_fn, this_fn, theirs,
+               ins, sums: dict):
+    """One row of --versus: the other build's call (it must launch), this
+    build's output held equal to its `theirs`, both timed in turns; prints
+    the row with each build's share of the bytes bound (`ins` and the
+    output), adds (other ms, this ms, bytes) to sums[name], and returns this
+    build's output."""
+    if other_fn() != 0:
+        raise RuntimeError(f"{other}: {name} refused")
+    mine = this_fn()
+    torch.cuda.synchronize()
+    err = max_err(torch, mine, theirs)
+    if err:
+        raise AssertionError(f"{name} {label}: this build and {other} differ by {err}")
+    o_ms, t_ms, t = turns(torch, other_fn, this_fn)
+    nb = nbytes(ins, mine)
+    bound = nb / BYTES_PER_S * 1e3
+    acc = sums.setdefault(name, [0.0, 0.0, 0])
+    for k, v in enumerate((o_ms, t_ms, nb)):
+        acc[k] += v
+    print(f"versus {name} {label}: other {o_ms:.6f} ms, this {t_ms:.6f} ms "
+          f"({o_ms / t_ms:.2f}x; turns {', '.join(f'{x:.6f}' for x in t)}), {nb} bytes, "
+          f"bound {bound:.6f} ms ({100 * bound / t_ms:.2f} % this, "
+          f"{100 * bound / o_ms:.2f} % other), outputs equal", flush=True)
+    return mine
+
+
+def versus_sums(sums: dict, what: str) -> None:
+    for name, (o_ms, t_ms, nb) in sums.items():
+        bound = nb / BYTES_PER_S * 1e3
+        print(f"versus sum {name} ({what}): other {o_ms:.6f} ms, this {t_ms:.6f} ms "
+              f"({o_ms / t_ms:.2f}x), {nb} bytes, bound {bound:.6f} ms "
+              f"({100 * bound / t_ms:.2f} % this, {100 * bound / o_ms:.2f} % other)",
+              flush=True)
+
+
+def versus_mc(torch, KN, other: str) -> None:
+    """vtm_mc_tiles against the build of another mc.cu (with its fir.cuh and
+    common.cuh) in `other`, on phase 3's 1080p seeded luma and chroma
+    batches, in turns.  The other build (commit 165e438 and before) reads
+    the plane pointers from a device table: uploaded once, outside the
+    timed calls."""
+    import numpy as np
+
+    from vtm_tpu_torch.ops import mc_kernel as MK
+
+    _, (fn,) = other_entries(KN, other, "mc.cu", ("vtm_mc_tiles",))
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    sums = {}
+    for label, planes, jobs, kw in mc_1080p_cases(MK, np.random.default_rng(9), dev):
+        n, tile = jobs[0].shape[0], kw["tile"]
+        table = torch.tensor([p.data_ptr() for p in planes], dtype=torch.int64, device=dev)
+        mine = torch.empty((n, tile, tile), dtype=torch.int32, device=dev)
+        theirs = torch.full_like(mine, -1)
+        versus_row(
+            torch, other, "vtm_mc_tiles", label,
+            lambda: fn(table.data_ptr(), len(planes), *planes[0].shape,
+                       *(a.data_ptr() for a in jobs), n, kw["taps"], tile, kw["bd"],
+                       theirs.data_ptr(), stream),
+            lambda: MK.mc_tiles_cuda(planes, *jobs, **kw, out=mine), theirs,
+            (planes, jobs), sums)
+    versus_sums(sums, "luma + chroma")
+
+
+def alf_filter_cases(torch, pic: dict, dev):
+    """The vtm_alf_filter calls of a captured picture's chain, as (label,
+    src_pad, coef, clip, o_rows, near_vb, taps), and the bit depth: the
+    chain up to SAO on the card (chain_body with ALF off), then the luma
+    classes and the per-CTU coefficient gather, as phase 3 takes them."""
+    from vtm_tpu_torch.ops import alf_kernel as AK
+    from vtm_tpu_torch.ops import edge_pad
+    from vtm_tpu_torch.ops import filter_chain as FC
+
+    planes, lmcs_lut, dmaps, sao_maps, alf_tables, bd, sx, sy = (pic[k] for k in (
+        "planes", "lmcs_lut", "dmaps", "sao_maps", "alf_tables", "bd", "sx", "sy"))
+    fl = FC.chain_flags(len(planes), lmcs_lut, dmaps, sao_maps, alf_tables)
+    comps = [FC.to_device(p, dev) for p in planes]
+    dbv, dbh, sao, alf = FC.maps_to_torch(dmaps, sao_maps, alf_tables, dev)
+    lut = FC.to_device(lmcs_lut, dev) if lmcs_lut is not None else None
+    flat = FC.chain_body(*comps, lut, dbv, dbh, sao, alf, bd, sx, sy, fl[:10] + (False,) * 5)
+    y, cb, cr = (p.view_as(c) for p, c in zip(flat.split([c.numel() for c in comps]), comps))
+    (cperm, lperm, ctu_of, l_orows, l_near, y_i, yd_i, yu_i, yu2_i, df, dl, mult,
+     cb_coef, cb_clip, cr_coef, cr_clip, c_orows, c_near) = alf[:18]
+    cases = []
+    if fl[10]:
+        y_pad = edge_pad(y, AK.PAD, AK.PAD)
+        cls, tr = AK.classify_picture_cuda(y_pad, y_i, yd_i, yu_i, yu2_i, df, dl, mult,
+                                           bit_depth=bd)
+        gather = (ctu_of.long(), cls.long(), tr.long())
+        cases.append(("luma", y_pad, cperm[gather], lperm[gather], l_orows, l_near,
+                      AK.LUMA_TAPS))
+    for on, label, c, co, cl in ((fl[11], "Cb", cb, cb_coef, cb_clip),
+                                 (fl[12], "Cr", cr, cr_coef, cr_clip)):
+        if on:
+            cases.append((label, edge_pad(c, AK.PAD, AK.PAD), co, cl, c_orows, c_near,
+                          AK.CHROMA_TAPS))
+    return cases, bd
+
+
+def versus_alf(torch, KN, other: str) -> None:
+    """vtm_alf_filter against the build of another alf.cu (with its
+    common.cuh) in `other`, on the luma, Cb and Cr filter inputs of POC 0
+    of the 1080p stream, in turns."""
+    from vtm_tpu_torch.ops import alf_kernel as AK
+    from vtm_tpu_torch.parallel import multichip as MCH
+
+    names = ("vtm_alf_classify", "vtm_alf_filter", "vtm_ccalf_filter")
+    _, (_, fn, _) = other_entries(KN, other, "alf.cu", names)
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    cases, bd = alf_filter_cases(torch, MCH.capture_decode(HD_STREAM, "cuda")["pics"][0], dev)
+    if len(cases) != 3:
+        raise AssertionError(f"POC 0 of {HD_STREAM}: ALF is off in a component")
+    sums = {}
+    for label, pad, coef, clip, orows, near, taps in cases:
+        H, W = orows.shape[0], coef.shape[1] * 4
+        theirs = torch.full((H, W), -1, dtype=torch.int32, device=dev)
+        versus_row(
+            torch, other, "vtm_alf_filter", f"POC 0 {label}",
+            lambda: fn(pad.data_ptr(), *pad.shape, coef.data_ptr(), clip.data_ptr(),
+                       int(taps == AK.LUMA_TAPS), orows.data_ptr(), near.data_ptr(), H, W,
+                       bd, theirs.data_ptr(), stream),
+            lambda: AK.alf_filter_cuda(pad, coef, clip, orows, near, taps=taps,
+                                       bit_depth=bd), theirs,
+            (pad, coef, clip, orows, near), sums)
+    versus_sums(sums, "Y + Cb + Cr")
 
 
 def versus_rmd(torch, KN, other: str) -> None:
@@ -832,18 +999,12 @@ def versus_rmd(torch, KN, other: str) -> None:
     class and the sums.  The other build gets the packed per-sample table of
     the kernels before the compact one (commit c2c0a90: (M, dh, dw, col0,
     offsets of cidx, f, wl, scidx) per group, then the arrays)."""
-    import ctypes
-
     from vtm_tpu_torch import testing as T
     from vtm_tpu_torch.encoder import rmd as RMD
     from vtm_tpu_torch.ops import rdcost as RC
 
-    names = ("vtm_rmd_angular", "vtm_rmd_mip", "vtm_rmd_reduce")
-    lib = build_other(KN, other, "rmd.cu", names)
-    for n in names:
-        fn = getattr(lib, f"versus_{n[4:]}")
-        fn.argtypes = list(KN._SIGNATURES[n])
-        fn.restype = ctypes.c_int
+    lib, _ = other_entries(KN, other, "rmd.cu",
+                           ("vtm_rmd_angular", "vtm_rmd_mip", "vtm_rmd_reduce"))
 
     def packed(c):
         head, parts, pos, col = [0] * 16, [], 16, 4
@@ -915,14 +1076,9 @@ def versus_deblock(torch, KN, other: str) -> None:
     from vtm_tpu_torch.ops import filter_chain as FC
     from vtm_tpu_torch.parallel import multichip as MCH
 
-    names = ("vtm_deblock_luma_ver", "vtm_deblock_chroma_ver",
-             "vtm_deblock_luma_ver_delta")
-    lib = build_other(KN, other, "deblock.cu", names)
+    lib, _ = other_entries(KN, other, "deblock.cu", (
+        "vtm_deblock_luma_ver", "vtm_deblock_chroma_ver", "vtm_deblock_luma_ver_delta"))
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for n in names:
-        fn = getattr(lib, f"versus_{n[4:]}")
-        fn.argtypes = list(KN._SIGNATURES[n])
-        fn.restype = ctypes.c_int
     # the chroma entry of 3762d21 took one plane a call
     lib.versus_deblock_chroma_ver.argtypes = [P, P, I, I, L, L, *[P] * 7, L, L,
                                               I, I, I, I, I, P]
@@ -939,7 +1095,7 @@ def versus_deblock(torch, KN, other: str) -> None:
     if fl[0]:
         y = FC.to_device(lmcs_lut, dev)[y.long()]
     stream = torch.cuda.current_stream().cuda_stream
-    sums = {"vtm_deblock_luma_ver": [0.0, 0.0, 0], "vtm_deblock_chroma_ver": [0.0, 0.0, 0]}
+    sums = {}
     for hor, maps, (hl, hcb, hcr) in ((False, dbv, fl[1:4]), (True, dbh, fl[4:7])):
         if not (hl and hcb and hcr):
             raise AssertionError(f"POC 0 of {HD_STREAM}: a component is not deblocked")
@@ -971,34 +1127,11 @@ def versus_deblock(torch, KN, other: str) -> None:
                 ("vtm_deblock_chroma_ver", other_chroma,
                  lambda: DK.deblock_dir_cuda(y, cb, cr, *maps, **ck)[1:], (o_cb, o_cr),
                  (cb, cr, maps[7:17])))
-        outs = []
-        for name, other_fn, this_fn, theirs, ins in rows:
-            if other_fn() != 0:
-                raise RuntimeError(f"{other}: {name} refused")
-            mine = this_fn()
-            torch.cuda.synchronize()
-            err = max_err(torch, tuple(mine), theirs)
-            if err:
-                raise AssertionError(f"{name} {'HOR' if hor else 'VER'}: this build "
-                                     f"and {other} differ by {err}")
-            o_ms, t_ms, t = turns(torch, other_fn, this_fn)
-            nb = nbytes(ins, mine)
-            bound = nb / BYTES_PER_S * 1e3
-            for k, v in enumerate((o_ms, t_ms, nb)):
-                sums[name][k] += v
-            print(f"versus {name} {'HOR' if hor else 'VER'}: other {o_ms:.6f} ms, this "
-                  f"{t_ms:.6f} ms ({o_ms / t_ms:.2f}x; turns "
-                  f"{', '.join(f'{x:.6f}' for x in t)}), {nb} bytes, bound {bound:.6f} ms "
-                  f"({100 * bound / t_ms:.2f} % this, {100 * bound / o_ms:.2f} % other), "
-                  f"outputs equal", flush=True)
-            outs.append(mine)
-        (y,), (cb, cr) = outs
-    for name, (o_ms, t_ms, nb) in sums.items():
-        bound = nb / BYTES_PER_S * 1e3
-        print(f"versus sum {name} (VER + HOR): other {o_ms:.6f} ms, this {t_ms:.6f} ms "
-              f"({o_ms / t_ms:.2f}x), {nb} bytes, bound {bound:.6f} ms "
-              f"({100 * bound / t_ms:.2f} % this, {100 * bound / o_ms:.2f} % other)",
-              flush=True)
+        (y,), (cb, cr) = (
+            tuple(versus_row(torch, other, name, "HOR" if hor else "VER", other_fn,
+                             this_fn, theirs, ins, sums))
+            for name, other_fn, this_fn, theirs, ins in rows)
+    versus_sums(sums, "VER + HOR")
 
 
 def check_transforms(torch, chk: KernelCheck, dev, seed: int = 17):
@@ -1361,10 +1494,10 @@ def main() -> int:
     ptxas = ptxas_report(diag)
     for name, r in ptxas.items():
         print(f"  ptxas: {name}: {r}", flush=True)
-    spills = [n for n, r in ptxas.items()
-              if n.startswith("rmd_") and (r.get("spill_stores") or r.get("spill_loads"))]
-    if spills:
-        raise AssertionError(f"RMD kernels spill: {spills}")
+    bad = [n for n, r in ptxas.items()
+           if any(r.get(k) for k in NO_LOCAL_MEMORY.get(n.split("<")[0], ()))]
+    if bad:
+        raise AssertionError(f"kernels with spills or a stack frame: {bad}")
     for name, cfg in DK.kernel_config().items():
         print(f"  launch shape {name}: {cfg}", flush=True)
 

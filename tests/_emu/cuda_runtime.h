@@ -33,9 +33,11 @@
 #define __shared__ static  // one copy for the block that runs
 #define __constant__
 #define __launch_bounds__(...)
+#define __grid_constant__
 #define __align__(n) __attribute__((aligned(n)))
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct alignas(16) int4 { int x, y, z, w; };
+struct alignas(8) int2 { int x, y; };
 struct uint3 { unsigned x, y, z; };
 inline thread_local uint3 threadIdx;
 inline thread_local uint3 blockIdx;

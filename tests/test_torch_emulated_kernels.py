@@ -1,5 +1,6 @@
-"""The SATD, RMD and deblocking CUDA sources, built for the CPU by the
-test-support emulation of tests/_emu, against their plain torch versions.
+"""The SATD, RMD, deblocking, MC and ALF-filter CUDA sources, built for the
+CPU by the test-support emulation of tests/_emu, against their plain torch
+versions.
 
 No card and no nvcc here, so the kernels themselves run on the chip only
 (chip_smoke.py and the `cuda` tests hold them to the plain versions there).
@@ -10,10 +11,14 @@ reduction's first argmin — one std::thread per CUDA thread, on a few
 positions of every class, and on strips of positions that fill one block
 and end part-way into the next; and the deblocking tiles (halos, decisions
 in shared memory, Cb and Cr in one launch) through the port's own wrappers
-on planes of several tiles each way with ragged right and bottom tiles.
-Tolerance 0.
+on planes of several tiles each way with ragged right and bottom tiles;
+the MC tile groups (plane pointers by value, windows and passes in shared
+memory) and the ALF filter tiles (a template per component, halo rows and
+columns, out-of-halo row offsets read from the plane) through their
+wrappers.  Tolerance 0.
 """
 
+import ctypes
 import os
 import shutil
 
@@ -26,7 +31,9 @@ from vtm_tpu.encoder.rmd_tpu import intra_class_list
 from vtm_tpu_torch import kernels as KN
 from vtm_tpu_torch import testing as T
 from vtm_tpu_torch.encoder import rmd as RMD
+from vtm_tpu_torch.ops import alf_kernel as AK
 from vtm_tpu_torch.ops import deblock_kernel as DK
+from vtm_tpu_torch.ops import mc_kernel as MK
 from vtm_tpu_torch.ops import rdcost as RC
 
 PIC_H, PIC_W = 80, 96
@@ -40,7 +47,7 @@ def lib(tmp_path_factory):
     from _emu import build
 
     return build.load(str(tmp_path_factory.mktemp("emu")),
-                      ["rdcost.cu", "rmd.cu", "deblock.cu"])
+                      ["rdcost.cu", "rmd.cu", "deblock.cu", "mc.cu", "alf.cu"])
 
 
 def test_satd_batch(lib):
@@ -224,3 +231,90 @@ def test_deblock_luma_ver_delta(emu_launch, bd):
     want = DK.luma_ver_delta_plain(pad, *maps, bd)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     assert want.any()
+
+
+def _misaligned(a: np.ndarray, aligned: bool = False) -> torch.Tensor:
+    """`a` as a contiguous int32 tensor, 4 bytes off a 16-byte boundary
+    unless `aligned`."""
+    buf = torch.empty(a.size + 4, dtype=torch.int32)
+    off = (-buf.data_ptr() // 4) % 4 + (0 if aligned else 1)
+    t = buf[off:off + a.size].view(a.shape)
+    t.copy_(torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)))
+    assert (t.data_ptr() % 16 == 0) == aligned
+    return t
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("lum", [True, False])
+def test_mc_tiles(emu_launch, lum, bd):
+    """vtm_mc_tiles through mc_tiles_cuda against mc_tiles_plain: 3 planes,
+    windows off every plane edge, uni and bi, one group of tiles and a part
+    of the next; then into an output 4 bytes off a 16-byte boundary."""
+    rng = np.random.default_rng(60 + bd + lum)
+    taps, tile = MK.SHAPES[lum]
+    group = 256 // (4 if lum else 2)  # tiles a block (csrc/mc.cu McShape::G)
+    refs = np.stack([T.plane(rng, 24, 40, bd) for _ in range(3)])
+    planes = list(torch.from_numpy(refs))
+    n = group + group // 2 + 3
+    args = [torch.from_numpy(a) for a in T.mc_tiles_case(rng, refs, n, lum, bd)]
+    kw = dict(taps=taps, tile=tile, bd=bd)
+    want = MK.mc_tiles_plain(planes, *args, **kw)
+    got = MK.mc_tiles_cuda(planes, *args, **kw)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    out = _misaligned(np.full((n, tile, tile), -1))
+    MK.mc_tiles_cuda(planes, *args, **kw, out=out)
+    np.testing.assert_array_equal(out.numpy(), want.numpy())
+
+
+def test_mc_tiles_plane_cap(lib, emu_launch):
+    """MAX_PLANES planes reach the kernel by value, every one read; one more
+    is refused by the wrapper, and by the C entry point."""
+    rng = np.random.default_rng(66)
+    R, n = MK.MAX_PLANES, 300
+    refs = np.stack([T.plane(rng, 8, 12, 8) for _ in range(R)])
+    planes = list(torch.from_numpy(refs))
+    args = [torch.from_numpy(a) for a in T.mc_tiles_case(rng, refs, n, True, 8)]
+    args[0] = torch.from_numpy(np.arange(n, dtype=np.int32) % R)
+    kw = dict(taps=8, tile=4, bd=8)
+    np.testing.assert_array_equal(MK.mc_tiles_cuda(planes, *args, **kw).numpy(),
+                                  MK.mc_tiles_plain(planes, *args, **kw).numpy())
+    with pytest.raises(ValueError, match="at most 256"):
+        MK.mc_tiles_cuda(planes + planes[:1], *args, **kw)
+    table = (ctypes.c_void_p * (R + 1))(*(p.data_ptr() for p in planes + planes[:1]))
+    out = torch.empty((n, 4, 4), dtype=torch.int32)
+    assert lib.vtm_mc_tiles(ctypes.addressof(table), R + 1, 8, 12,
+                            *(a.data_ptr() for a in args), n, 8, 4, 8,
+                            out.data_ptr(), None) != 0
+
+
+# the ALF filter's tiles are 64 columns x 16 rows (luma) or 8 rows (chroma):
+# a plane of 3 x 3 luma and 3 x 5 chroma tiles, the right and bottom ragged
+ALF_H, ALF_W = 36, 136
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("luma", [True, False])
+def test_alf_filter(emu_launch, luma, bd, aligned):
+    """vtm_alf_filter<LUMA> through alf_filter_cuda against
+    alf_filter_plain: VB rows in every CTU row, an ALF-off CTU row (zero
+    coefficients), two row offsets past the halo (read from the plane,
+    clamped), and with aligned=False the plane and the coefficient and clip
+    maps 4 bytes off a 16-byte boundary (scalar loads)."""
+    rng = np.random.default_rng(70 + 4 * bd + 2 * luma + aligned)
+    ctu, n = (16, 12) if luma else (8, 6)
+    src = T.plane(rng, ALF_H, ALF_W, bd)
+    coef = rng.integers(-64, 65, size=(ALF_H // 4, ALF_W // 4, n))
+    clip = rng.integers(0, 1 << bd, size=(ALF_H // 4, ALF_W // 4, n))
+    coef[ctu // 4:2 * ctu // 4] = 0  # an ALF-off CTU row: identity there
+    o_rows, near = AK.vb_row_offsets(ALF_H, ctu, ctu - (4 if luma else 2), luma)
+    o_rows[5, 2], o_rows[34, 3] = 9, -40  # past the halo: a malformed table
+    taps = AK.LUMA_TAPS if luma else AK.CHROMA_TAPS
+    pad = _misaligned(np.pad(src, AK.PAD, mode="edge"), aligned)
+    maps = [_misaligned(m, aligned) for m in (coef, clip)]
+    rows = (torch.from_numpy(o_rows), torch.from_numpy(near))
+    got = AK.alf_filter_cuda(pad, *maps, *rows, taps=taps, bit_depth=bd)
+    want = AK.alf_filter_plain(pad, *maps, *rows, taps=taps, bit_depth=bd)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(want.numpy()[ctu:2 * ctu], src[ctu:2 * ctu])
+    assert near.any() and not np.array_equal(want.numpy(), src)

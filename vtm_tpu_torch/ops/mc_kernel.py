@@ -20,8 +20,10 @@ Why one branch-free form covers VTM's four filter paths
   because the dropped low s bits never reach the bit-5 rounding (s < 6).
 
 * CPU tensors: `mc_tiles_plain`.
-* CUDA tensors: csrc/mc.cu, one thread per output sample; the reference
-  planes reach it as a device table of plane pointers (no stacking).
+* CUDA tensors: csrc/mc.cu, a group of tiles a block, their windows in
+  shared memory, a thread a tile column; the reference planes reach it by
+  value, as up to MAX_PLANES pointers in its kernel parameters (no
+  stacking, no copy to the card).
 
 Not carried over from the reference: batch-size buckets and the
 power-of-two padding of the plane stack (they bounded XLA compiles), the
@@ -29,6 +31,8 @@ CAPTURE hook and the mesh branch.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -40,6 +44,8 @@ IF_INTERNAL_PREC = 14
 IF_OFFS = 1 << (IF_INTERNAL_PREC - 1)
 # component class -> (taps, tile)
 SHAPES = {True: (8, 4), False: (4, 2)}
+# reference planes a kernel call takes (csrc/mc.cu MC_MAX_PLANES)
+MAX_PLANES = 256
 
 
 def mc_tiles_plain(refs, r_idx, x0, y0, cH, cV, fy_nz, rnd, taps: int,
@@ -89,11 +95,15 @@ def mc_tiles_plain(refs, r_idx, x0, y0, cH, cV, fy_nz, rnd, taps: int,
 
 def mc_tiles_cuda(refs, r_idx, x0, y0, cH, cV, fy_nz, rnd, taps: int,
                   tile: int, bd: int, out: torch.Tensor | None = None):
-    """csrc/mc.cu on the same arguments; writes into `out` when given."""
+    """csrc/mc.cu on the same arguments; writes into `out` when given.  The
+    plane pointers go to the kernel as a host array: no copy to the card."""
     dev = r_idx.device
     planes = list(refs)
     if not planes:
         raise ValueError("mc_tiles: no reference plane")
+    if len(planes) > MAX_PLANES:
+        raise ValueError(f"mc_tiles: {len(planes)} reference planes, at most "
+                         f"{MAX_PLANES} a call")
     H, W = planes[0].shape
     for p in planes:
         KN.check(p, "refs", torch.int32, dev, (H, W))
@@ -109,8 +119,8 @@ def mc_tiles_cuda(refs, r_idx, x0, y0, cH, cV, fy_nz, rnd, taps: int,
     KN.check(out, "out", torch.int32, dev, (N, tile, tile))
     if N == 0:
         return out
-    table = torch.tensor([p.data_ptr() for p in planes], dtype=torch.int64).to(dev)
-    KN.launch("vtm_mc_tiles", dev, table.data_ptr(), len(planes), H, W,
+    table = (ctypes.c_void_p * len(planes))(*(p.data_ptr() for p in planes))
+    KN.launch("vtm_mc_tiles", dev, ctypes.addressof(table), len(planes), H, W,
               r_idx.data_ptr(), x0.data_ptr(), y0.data_ptr(), cH.data_ptr(),
               cV.data_ptr(), fy_nz.data_ptr(), rnd.data_ptr(), N, taps, tile,
               bd, out.data_ptr())
