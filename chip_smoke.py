@@ -13,8 +13,8 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    kernel's registers, stack frame, spill bytes and static shared bytes
    (ptxas -v; a template instantiation with its arguments), and the
    deblocking tile kernels' launch shape (resident blocks an SM); an RMD
-   kernel that spills, or an MC or ALF-filter kernel with a stack frame or
-   spills, fails;
+   kernel that spills, or an MC, ALF-filter, FIR or RMD-reduction kernel
+   with a stack frame or spills, fails;
 3. each kernel against its plain torch version, exactly:
    - the filter kernels on the real chain inputs of POC 0 of
      testdata/ai_full_hd1080_qp37.bit (1920x1080 4:2:0 8-bit, LMCS +
@@ -22,8 +22,10 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
      case;
    - the MC, DMVR-search, FIR and BDOF kernels on the inputs of every call
      of the port's own CUDA decode of testdata/ra_full_bq416_qp37.bit
-     (416x240 RA, every inter tool on), and on numpy-seeded batches the
-     size of a 1080p 4:2:0 picture;
+     (416x240 RA, every inter tool on; the FIR group by group and as
+     dmvr_final_pack's one launch), and on numpy-seeded batches the size
+     of a 1080p 4:2:0 picture (the FIR also as a six-group
+     dmvr_final_pack);
    kernel and plain times from CUDA events, on the 1080p inputs: the
    kernel's device time (`ms`: a spin kernel queued ahead of the start
    event keeps the host's issue time out of the window; a row that cannot
@@ -36,8 +38,10 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
      mirror-tiled from testdata/bq416_416x240_420_8.yuv (MIP on, 888,628
      positions; per class: positions, operations, bound, kernel and plain
      ms, and each kernel's threads, shared bytes, resident blocks an SM,
-     positions a block, registers and spills), and on numpy-seeded 10-bit
-     256x192 and 1920x1080 pictures;
+     positions a block, registers and spills; the reduction beside its
+     library call, torch.min over the angular and over the MIP columns,
+     held equal first), and on numpy-seeded 10-bit 256x192 and 1920x1080
+     pictures;
    - the two inverse transforms (int32 MACs; int8 tensor cores) on batches
      the size of a 1920x1080 plane, every block size and kind pair, 8- and
      10-bit, each against the plain version and the two against each
@@ -67,7 +71,9 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    N = 32 on 4 lanes; every lane equal to its picture's single-lane result
    (MC and recon: to the plain version's), and each sharded stage run 7
    times, its host seconds (median, min, max) beside its one-lane run's;
-   the decodes that capture its inputs run before its counts are zeroed;
+   the decodes that capture its inputs run before its counts are zeroed,
+   and its launches are those of one run of each stage (every run must
+   launch what the first did);
    launch counts, zeroed before each main path and read after it, prove
    that the three paths ran through every kernel (two excepted, checked and
    timed in phase 3 only: the standalone SATD entry point, whose code runs
@@ -75,9 +81,10 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    calls from its tests alone); the encodes' own
    counts, without the decodes that check their streams, prove that the
    encoder's RMD, deblocking, SAO and ALF ran through the kernels;
-7. each kernel's bound line (device and call ms), the redesign order
-   (main-path launches x (device ms - bound ms) per launch of the timed
-   calls), one JSON line of per-kernel results, then the device line, last.
+7. each kernel's bound line (device and call ms; the library call's ms
+   where one was timed), the redesign order (main-path launches x (device
+   ms - bound ms) per launch of the timed calls), one JSON line of
+   per-kernel results, then the device line, last.
 
     python3 chip_smoke.py --versus DIR
 
@@ -86,11 +93,13 @@ the same sources, in one process on one card, in turns (other, this, this,
 other), in device ms, each result equal to this checkout's.  DIR holds
 that commit's sources (e.g. from `git show 3762d21:vtm_tpu_torch/csrc/
 deblock.cu`), built into DIR/libversus_*.so with the entry points renamed:
-rmd.cu, satd.cuh and common.cuh time the RMD kernels class by class on
-the 1080p source; deblock.cu and common.cuh time the luma and chroma
+rmd.cu, satd.cuh and common.cuh time the three RMD kernels class by class
+on the 1080p source; deblock.cu and common.cuh time the luma and chroma
 deblocking on POC 0 of the 1080p stream, VER and HOR; mc.cu, fir.cuh and
 common.cuh time the MC tiles on phase 3's 1080p-sized seeded batches;
-alf.cu and common.cuh time the ALF filter on POC 0's Y, Cb and Cr.
+alf.cu and common.cuh time the ALF filter on POC 0's Y, Cb and Cr;
+refine.cu, fir.cuh and common.cuh time the FIR on phase 3's 1080p-sized
+luma blocks and six-group dmvr_final_pack call.
 """
 
 from __future__ import annotations
@@ -166,9 +175,10 @@ MESH_KERNELS = ("vtm_inv_transform", "vtm_recon_sse",
 # kernel -> ptxas counts that must be 0 (phase 2): the redesigned kernels keep
 # every value in registers or shared memory
 NO_LOCAL_MEMORY = {
-    **dict.fromkeys(("rmd_angular_kernel", "rmd_mip_kernel", "rmd_reduce_kernel"),
+    **dict.fromkeys(("rmd_angular_kernel", "rmd_mip_kernel"),
                     ("spill_stores", "spill_loads")),
-    **dict.fromkeys(("mc_tiles_kernel", "alf_filter_kernel"),
+    **dict.fromkeys(("mc_tiles_kernel", "alf_filter_kernel", "fir_blocks_kernel",
+                     "rmd_reduce_kernel"),
                     ("spill_stores", "spill_loads", "stack_frame"))}
 # runs of each sharded stage whose host seconds are compared (median)
 REPEATS = 7
@@ -365,17 +375,20 @@ class KernelCheck:
         self.torch = torch
         self.last = None  # the last timed comparison: ms, call_ms, plain_ms, bytes, ops
         self.rows = {k: dict(max_abs_err=0, ms=0.0, call_ms=0.0, plain_ms=0.0,
-                             bytes=0, ops=0.0, peak=INT32_OPS_PER_S, timed=0,
-                             launches=0, paced=[])
+                             library_ms=None, bytes=0, ops=0.0, peak=INT32_OPS_PER_S,
+                             timed=0, launches=0, paced=[])
                      for k in KERNEL_INFO}
 
     def compare(self, kernel: str, label: str, cuda_fn, plain_fn,
                 timed: bool = False, iters: int = 10, ins=(), ops: float = 0,
-                peak: float = INT32_OPS_PER_S, quiet: bool = False):
+                peak: float = INT32_OPS_PER_S, quiet: bool = False, library=None):
         """Kernel against plain version; with `timed`, both timed, and the
         bound counted: the bytes of `ins` and of the result, and `ops`
-        operations at `peak` per second.  `quiet` prints nothing unless the
-        two disagree."""
+        operations at `peak` per second.  `library`: (fn, agree) of PyTorch
+        calls that compute the same function, never used by the port: with
+        `timed`, fn() is held to the kernel's result (agree(got, fn()) must
+        be true) and then timed as the row's library_ms.  `quiet` prints
+        nothing unless the two disagree."""
         from vtm_tpu_torch import kernels as KN
 
         torch = self.torch
@@ -409,6 +422,16 @@ class KernelCheck:
             msg += (f", {per_call} launches a call, kernel "
                     f"{ms:.6f} ms ({paced + '; the call time' if paced else 'device'}), "
                     f"{call:.6f} ms (call), plain {pms:.6f} ms")
+            if library is not None:
+                lib_fn, agree = library
+                if not agree(got, lib_fn()):
+                    raise AssertionError(f"{kernel} [{label}]: the library call "
+                                         "disagrees with the kernel")
+                lms, lpaced = device_ms(torch, lib_fn, iters)
+                if lpaced:
+                    raise AssertionError(f"{kernel} [{label}] library call {lpaced}")
+                row["library_ms"] = (row["library_ms"] or 0.0) + lms
+                msg += f", library {lms:.6f} ms (device; equal to the kernel's result)"
         if err or not quiet:
             print(msg, flush=True)
         if err:
@@ -595,17 +618,52 @@ def check_inter_recorded(chk: KernelCheck, got, MK, RK):
                     lambda: RK.dmvr_search_cuda(*args, **kw),
                     lambda: RK.dmvr_search_plain(*args, **kw))
     for (l0, l1, cargs), kw in got["pack"]:
-        jobs = [(a, dict(w=kw["w"], h=kw["h"], taps=8, bd=kw["bd"])) for a in (l0, l1)]
-        jobs += [(a, dict(w=kw["wc"], h=kw["hc"], taps=4, bd=kw["bd"])) for a in cargs]
+        jobs = pack_jobs(l0, l1, cargs, **kw)
         for a, fk in jobs:
             chk.compare("vtm_fir_blocks",
                         f"{label}, {a[0].shape[0]} {fk['w']}x{fk['h']} blocks",
                         lambda: RK.fir_blocks_cuda(*a, **fk),
                         lambda: RK.fir_blocks_plain(*a, **fk))
+        chk.compare("vtm_fir_blocks", f"{label}, dmvr_final_pack of {len(jobs)} groups",
+                    lambda: RK.dmvr_final_pack(l0, l1, cargs, **kw),
+                    lambda: pack_plain(RK, jobs))
     for args, kw in got["bdof"]:
         chk.compare("vtm_bdof_blend", f"{label}, {args[0].shape[0]} sub-blocks",
                     lambda: RK.bdof_blend_batch_cuda(*args, **kw),
                     lambda: RK.bdof_blend_batch_plain(*args, **kw))
+
+
+def pack_jobs(l0, l1, cargs, w: int, h: int, wc: int, hc: int, bd: int):
+    """dmvr_final_pack's groups as (arguments, fir_blocks keywords)."""
+    return ([(a, dict(w=w, h=h, taps=8, bd=bd)) for a in (l0, l1)]
+            + [(a, dict(w=wc, h=hc, taps=4, bd=bd)) for a in cargs])
+
+
+def pack_plain(RK, jobs):
+    """dmvr_final_pack's flat output from the plain FIR, group by group."""
+    import torch
+
+    return torch.cat([RK.fir_blocks_plain(*a, **fk).reshape(-1) for a, fk in jobs])
+
+
+def pack_1080p_case(rng, dev, n: int = 8100, bd: int = 8):
+    """(l0, l1, cargs, keywords) of a dmvr_final_pack call the size of a 1080p
+    4:2:0 picture of n 16x16 sub-PUs, numpy-seeded: both lists' luma (23x23
+    buffers) and four chroma groups (11x11 buffers)."""
+    from vtm_tpu_torch import testing as T
+    from vtm_tpu_torch.ops.filter_chain import to_device
+
+    l0, l1 = ([to_device(a, dev) for a in T.fir_blocks_case(rng, n, 8, 16, 16, bd)]
+              for _ in range(2))
+    cargs = [[to_device(a, dev) for a in T.fir_blocks_case(rng, n, 4, 8, 8, bd)]
+             for _ in range(4)]
+    return l0, l1, cargs, dict(w=16, h=16, wc=8, hc=8, bd=bd)
+
+
+def fir_ops(jobs) -> int:
+    """Multiply-adds of the FIR's two passes over its jobs."""
+    return sum(a[0].shape[0] * ((fk["h"] + fk["taps"] - 1) * fk["w"] + fk["h"] * fk["w"])
+               * fk["taps"] for a, fk in jobs)
 
 
 def mc_1080p_cases(MK, rng, dev, bd: int = 8):
@@ -664,13 +722,20 @@ def check_inter_1080p(chk: KernelCheck, MK, RK, dev, seed: int = 9):
     chk.compare("vtm_fir_blocks", f"{label} luma blocks",
                 lambda: RK.fir_blocks_cuda(*args, **kw),
                 lambda: RK.fir_blocks_plain(*args, **kw), timed=True,
-                ins=args, ops=8100 * (23 * 16 + 16 * 16) * 8)
+                ins=args, ops=fir_ops([(args, kw)]))
     kw = dict(bd=bd, w=16, h=16)
     args = [d(a) for a in T.bdof_case(rng, 8100, 16, 16, bd)]
     chk.compare("vtm_bdof_blend", f"{label} sub-blocks",
                 lambda: RK.bdof_blend_batch_cuda(*args, **kw),
                 lambda: RK.bdof_blend_batch_plain(*args, **kw), timed=True,
                 ins=args, ops=8100 * 256 * 30)
+    # the main path's form of the FIR: dmvr_final_pack's six groups, one launch
+    l0, l1, cargs, kw = pack_1080p_case(rng, dev)
+    jobs = pack_jobs(l0, l1, cargs, **kw)
+    chk.compare("vtm_fir_blocks", f"{label}, dmvr_final_pack of 6 groups",
+                lambda: RK.dmvr_final_pack(l0, l1, cargs, **kw),
+                lambda: pack_plain(RK, jobs), timed=True,
+                ins=(l0, l1, cargs), ops=fir_ops(jobs))
 
 
 def satd_ops(RC, h: int, w: int) -> int:
@@ -740,6 +805,14 @@ def rmd_jobs(RMD, src, bd: int):
         yield w, h, RMD.class_consts(w, h, bd, True, dev), sp, xs, ys
 
 
+def reduce_agrees(red, lib) -> bool:
+    """vtm_rmd_reduce's columns 0, 1, 3 and 4 against the two torch.min
+    calls (values and first indices) over the angular and the MIP columns."""
+    (av, ai), (mv, mi) = lib
+    return all(bool((red[:, k].long() == v.long()).all())
+               for k, v in ((0, av), (1, ai), (3, mv), (4, mi)))
+
+
 def check_rmd(torch, chk: KernelCheck, src, bd: int, label: str, timed: bool,
               ptxas: dict | None = None):
     """The three RMD kernels against their plain versions on every class of
@@ -773,7 +846,10 @@ def check_rmd(torch, chk: KernelCheck, src, bd: int, label: str, timed: bool,
         chk.compare("vtm_rmd_reduce", tag,
                     lambda: RMD.reduce_cuda(full, c.n_mip),
                     lambda: RMD.reduce_plain(full, c.n_mip), **kw,
-                    ins=full, ops=2 * full.numel())
+                    ins=full, ops=2 * full.numel(), library=(
+                        lambda: (torch.min(full[:, :RMD.N_ANG], 1),
+                                 torch.min(full[:, RMD.N_ANG:], 1)),
+                        reduce_agrees))
         if timed:
             per_class.append((w, h, P, RMD.kernel_config(w, h), t_ang, t_mip))
     print(f"RMD [{label}]: {total} positions in all classes", flush=True)
@@ -832,14 +908,15 @@ def turns(torch, other_fn, this_fn, iters: int = 10):
 def versus(torch, other: str) -> int:
     """This checkout's kernels against another commit's build of the same
     sources in directory `other`, in one process on one card: the kernels
-    of each of rmd.cu, deblock.cu, mc.cu and alf.cu that `other` holds."""
+    of each of rmd.cu, deblock.cu, mc.cu, alf.cu and refine.cu that `other`
+    holds."""
     from vtm_tpu_torch import kernels as KN
 
     print(card_line(), flush=True)
     for name, r in ptxas_report(KN.build(force=True, ptxas_verbose=True)).items():
         print(f"  ptxas: {name}: {r}", flush=True)
     runs = {"rmd.cu": versus_rmd, "deblock.cu": versus_deblock, "mc.cu": versus_mc,
-            "alf.cu": versus_alf}
+            "alf.cu": versus_alf, "refine.cu": versus_refine}
     ran = [src for src in runs if os.path.exists(os.path.join(other, src))]
     if not ran:
         raise FileNotFoundError(f"{other} holds none of {', '.join(runs)}")
@@ -994,40 +1071,29 @@ def versus_alf(torch, KN, other: str) -> None:
 
 
 def versus_rmd(torch, KN, other: str) -> None:
-    """vtm_rmd_angular and vtm_rmd_mip against the build of another rmd.cu
-    in `other`, per class of the 1080p source, in turns; prints a line per
-    class and the sums.  The other build gets the packed per-sample table of
-    the kernels before the compact one (commit c2c0a90: (M, dh, dw, col0,
-    offsets of cidx, f, wl, scidx) per group, then the arrays)."""
+    """vtm_rmd_angular, vtm_rmd_mip and vtm_rmd_reduce against the build of
+    another rmd.cu in `other` (with its satd.cuh and common.cuh; commit
+    8391984 or later: the compact class table), per class of the 1080p
+    source, in turns; prints a line per class for the angular and MIP
+    kernels (operation bound), a versus row per class for the reduction
+    (bytes bound), and the sums."""
     from vtm_tpu_torch import testing as T
     from vtm_tpu_torch.encoder import rmd as RMD
     from vtm_tpu_torch.ops import rdcost as RC
 
     lib, _ = other_entries(KN, other, "rmd.cu",
                            ("vtm_rmd_angular", "vtm_rmd_mip", "vtm_rmd_reduce"))
-
-    def packed(c):
-        head, parts, pos, col = [0] * 16, [], 16, 4
-        for gi, g in enumerate(c.groups):
-            head[8 * gi:8 * gi + 4] = (len(g["modes"]), g["dh"], g["dw"], col)
-            for k, name in enumerate(("cidx", "f", "wl", "scidx")):
-                head[8 * gi + 4 + k] = pos
-                parts.append(g[name].reshape(-1))
-                pos += parts[-1].numel()
-            col += len(g["modes"])
-        return torch.cat([torch.tensor(head, dtype=torch.int32, device="cuda")] + parts)
-
     stream = torch.cuda.current_stream().cuda_stream
     sums = {k: [0.0, 0.0, 0.0] for k in ("angular", "mip")}  # other, this, ops
+    red_sums = {}
     for w, h, c, sp, xs, ys in rmd_jobs(RMD, T.hd_source()[0], 8):
         P = xs.shape[0]
-        tab = packed(c)
         mine = torch.empty((P, c.ncols), dtype=torch.int32, device="cuda")
         theirs = torch.full_like(mine, -1)
         pos = (sp.data_ptr(), *sp.shape, xs.data_ptr(), ys.data_ptr(), P)
         runs = {
             "angular": (lambda: RMD.angular_costs_cuda(sp, xs, ys, c, mine),
-                        lambda: lib.versus_rmd_angular(*pos, tab.data_ptr(), w, h, 8,
+                        lambda: lib.versus_rmd_angular(*pos, c.tab.data_ptr(), w, h, 8,
                                                        theirs.data_ptr(), c.ncols, stream),
                         RMD.N_ANG),
             "mip": (lambda: RMD.mip_costs_cuda(sp, xs, ys, c, mine),
@@ -1053,11 +1119,88 @@ def versus_rmd(torch, KN, other: str) -> None:
             raise AssertionError(f"{w}x{h}: this build and {other} differ by {err}")
         print(f"versus {w}x{h}, {P} positions: " + "; ".join(line) + ", outputs equal",
               flush=True)
+        red = torch.full((P, 5), -1, dtype=torch.int32, device="cuda")
+        versus_row(torch, other, "vtm_rmd_reduce", f"{w}x{h}, {P} positions",
+                   lambda: lib.versus_rmd_reduce(mine.data_ptr(), P, c.ncols, 2 * c.n_mip,
+                                                 red.data_ptr(), stream),
+                   lambda: RMD.reduce_cuda(mine, c.n_mip), red, mine, red_sums)
     for kern, (o_ms, t_ms, ops) in sums.items():
         bound = ops / INT32_OPS_PER_S * 1e3
         print(f"versus sum {kern}: other {o_ms:.6f} ms, this {t_ms:.6f} ms "
               f"({o_ms / t_ms:.2f}x), op bound {bound:.6f} ms ({100 * bound / t_ms:.2f} "
               f"% this, {100 * bound / o_ms:.2f} % other)", flush=True)
+    versus_sums(red_sums, "17 classes")
+
+
+def versus_refine(torch, KN, other: str) -> None:
+    """vtm_fir_blocks against the build of another refine.cu in `other`
+    (with its fir.cuh and common.cuh), in turns: on phase 3's 1080p-sized
+    8,100 16x16 luma blocks, and on a dmvr_final_pack call of 8,100 16x16
+    sub-PUs (six groups).  An entry point of job groups (`int ngroups`, as
+    here) gets the six groups in one launch; the older one (commit 760a03e
+    and before: one group a launch, the arguments one by one) six launches,
+    timed as one call."""
+    import ctypes
+
+    import numpy as np
+
+    from vtm_tpu_torch import testing as T
+    from vtm_tpu_torch.ops import refine_kernel as RK
+    from vtm_tpu_torch.ops.filter_chain import to_device
+
+    lib = build_other(KN, other, "refine.cu",
+                      ("vtm_dmvr_search", "vtm_fir_blocks", "vtm_bdof_blend"))
+    with open(os.path.join(other, "refine.cu")) as f:
+        grouped = "int ngroups" in f.read()
+    fir = lib.versus_fir_blocks
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fir.argtypes = (list(KN._SIGNATURES["vtm_fir_blocks"]) if grouped
+                    else [P, I, I, I, P, P, P, P, I, I, I, I, P, P])
+    fir.restype = ctypes.c_int
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(9)
+    bd = 8
+
+    def other_fir(groups, flat):
+        """The other build's launch (grouped) or launches (one a group),
+        into `flat`."""
+        errs, pos, ptrs, dims = [], 0, [], []
+        for a, fk in groups:
+            bufs, x0, y0, cfh, cfv = a
+            n, H, W = bufs.shape
+            if grouped:
+                ptrs += [t.data_ptr() for t in a]
+                dims += [n, H, W, fk["w"], fk["h"], fk["taps"], pos]
+            else:
+                errs.append(fir(bufs.data_ptr(), n, H, W, x0.data_ptr(), y0.data_ptr(),
+                                cfh.data_ptr(), cfv.data_ptr(), fk["w"], fk["h"],
+                                fk["taps"], fk["bd"], flat[pos:].data_ptr(), stream))
+            pos += n * fk["h"] * fk["w"]
+        if grouped:
+            p = (ctypes.c_void_p * len(ptrs))(*ptrs)
+            d = (ctypes.c_int * len(dims))(*dims)
+            errs.append(fir(len(groups), ctypes.addressof(p), ctypes.addressof(d), bd,
+                            flat.data_ptr(), stream))
+        return max(errs)
+
+    sums = {}
+    args = [to_device(a, dev) for a in T.fir_blocks_case(rng, 8100, 8, 16, 16, bd)]
+    kw = dict(w=16, h=16, taps=8, bd=bd)
+    mine = torch.empty((8100, 16, 16), dtype=torch.int32, device=dev)
+    theirs = torch.full_like(mine, -1)
+    versus_row(torch, other, "vtm_fir_blocks", "1080p seeded, 8100 16x16 luma blocks",
+               lambda: other_fir([(args, kw)], theirs.view(-1)),
+               lambda: RK.fir_blocks_cuda(*args, **kw, out=mine), theirs, args, sums)
+    l0, l1, cargs, kw = pack_1080p_case(rng, dev)
+    jobs = pack_jobs(l0, l1, cargs, **kw)
+    theirs = torch.full((sum(a[0].shape[0] * fk["h"] * fk["w"] for a, fk in jobs),), -1,
+                        dtype=torch.int32, device=dev)
+    versus_row(torch, other, "vtm_fir_blocks",
+               "1080p seeded, dmvr_final_pack of 8100 16x16 sub-PUs (6 groups; other: "
+               f"{'1 launch' if grouped else '6 launches'})", lambda: other_fir(jobs, theirs),
+               lambda: RK.dmvr_final_pack(l0, l1, cargs, **kw), theirs, (l0, l1, cargs), sums)
+    versus_sums(sums, "luma blocks + dmvr_final_pack")
 
 
 def versus_deblock(torch, KN, other: str) -> None:
@@ -1242,19 +1385,24 @@ def show_dryrun(rep: dict, one: dict) -> None:
             statistics.median(one[k]) / (one[pics] if pics else 1))
         parts.append(f"{k[:-2]} {spread(rep[k])}, {ratio:.4f}x one lane"
                      + (" per picture" if pics else ""))
-    what = {k: v for k, v in rep.items() if k not in per}
-    print(f"dryrun_multichip {rep['stream']} {what}: " + "; ".join(parts), flush=True)
+    what = {k: v for k, v in rep.items() if k not in per and k != "launches"}
+    print(f"dryrun_multichip {rep['stream']} {what}: " + "; ".join(parts)
+          + f"; launches of one run of each stage {rep['launches']}", flush=True)
 
 
 def mesh_path(torch, KN, hd_cap: dict, dev) -> dict:
     """The multi-device main path on lanes sharing the card; returns its
-    launch counts.  Its inputs come first: the decodes that capture the
-    small208 and RA streams, the seeded MC batch, and the plain results the
-    MC and recon stages are held to.  Then the counts are zeroed, and only
-    the sharded calls and their one-lane runs follow.  Every lane is held to
-    its picture's single-lane result; every stage runs REPEATS times, and
-    its host seconds (inputs uploaded, result fetched) are printed as
-    median, min and max beside the one-lane run's."""
+    launch counts, those of one run of each stage.  Its inputs come first:
+    the decodes that capture the small208 and RA streams, the seeded MC
+    batch, and the plain results the MC and recon stages are held to.  Then
+    the counts are zeroed, and only the sharded calls and their one-lane
+    runs follow.  Every lane is held to its picture's single-lane result;
+    every stage runs REPEATS times (multichip.timed_runs, which asserts that
+    each run launched what the first did), and its host seconds (inputs
+    uploaded, result fetched) are printed as median, min and max beside the
+    one-lane run's.  The runs exist for the seconds' spread, so one run of
+    each stage is what the path launches; all launches of the phase must
+    be REPEATS times those."""
     import numpy as np
 
     from vtm_tpu_torch import testing as T
@@ -1287,12 +1435,20 @@ def mesh_path(torch, KN, hd_cap: dict, dev) -> dict:
 
     # ---- the path: sharded calls and their one-lane runs alone ----
     KN.reset_launch_counts()
+    counts = dict.fromkeys(KN.KERNELS, 0)
+
+    def count(launches: dict) -> dict:
+        for k, v in launches.items():
+            counts[k] += v
+        return launches
+
     for stream, cap, cases in ((HD_STREAM, hd_cap, ((1, 1), (4, 2), (8, 8))),
                                (MCH.STREAM, small_cap, ((1, None), (2, None), (8, None)))):
         one = None
         for n, tile in cases:
             rep = MCH.dryrun_multichip(n, device="cuda", stream=stream, tile=tile,
                                        cap=cap, repeats=REPEATS)
+            count(rep["launches"])
             one = one or rep
             show_dryrun(rep, one)
     # the MC job axis over 4 lanes: a 1080p-sized seeded batch, a slice batch
@@ -1302,20 +1458,20 @@ def mesh_path(torch, KN, hd_cap: dict, dev) -> dict:
         one = None
         for n in (1, 4):
             mesh = MS.codec_mesh(n, device="cuda")
-            got, secs = MCH.timed_runs(
+            got, secs, runs = MCH.timed_runs(
                 lambda: PS.sharded_mc_tiles(mesh, mc).cpu().numpy(), REPEATS)
             if not np.array_equal(got, mc["out"]):
                 raise AssertionError(f"sharded MC mismatch ({label}, {n} lanes)")
             one = one or secs
             print(f"sharded_mc_tiles [{label}] on {n} lanes: equal to the single-lane "
                   f"result, {spread(secs)}, "
-                  f"{statistics.median(secs) / statistics.median(one):.4f}x one lane",
-                  flush=True)
+                  f"{statistics.median(secs) / statistics.median(one):.4f}x one lane; "
+                  f"launches of one run {count(runs)}", flush=True)
     # the sharded reconstruction step, against the plain transform and recon
     one = None
     for n in (1, 4):
         mesh = MS.codec_mesh(n, gop=min(n, 2), device="cuda")
-        (recon, sse), secs = MCH.timed_runs(
+        (recon, sse), secs, runs = MCH.timed_runs(
             lambda: tuple(t.cpu() for t in MS.sharded_recon_step(mesh, coeff, pred, orig)),
             REPEATS)
         if not (torch.equal(recon, want_recon) and torch.equal(sse, want_sse)):
@@ -1323,9 +1479,14 @@ def mesh_path(torch, KN, hd_cap: dict, dev) -> dict:
         one = one or secs
         print(f"sharded_recon_step {shape} on {mesh.gop} x {mesh.tile} lanes: equal to "
               f"the plain result, SSE {float(sse[0])}, {spread(secs)}, "
-              f"{statistics.median(secs) / statistics.median(one):.4f}x one lane",
-              flush=True)
-    return KN.launch_counts()
+              f"{statistics.median(secs) / statistics.median(one):.4f}x one lane; "
+              f"launches of one run {count(runs)}", flush=True)
+    total = KN.launch_counts()
+    if any(total[k] != REPEATS * counts[k] for k in total):
+        raise AssertionError(f"the phase launched {total}, not {REPEATS} x one run "
+                             f"of each stage {counts}")
+    print(f"launches, all {REPEATS} runs of each stage: {total}", flush=True)
+    return counts
 
 
 def encode_small(torch, KN, Decoder, IntraEncoder, name: str, kw: dict) -> dict:
@@ -1587,7 +1748,8 @@ def main() -> int:
 
     # 6. the multi-device main path, with the launch counts of this run only
     mesh_counts = mesh_path(torch, KN, hd_cap, dev)
-    print(f"launches, multi-device main path: {mesh_counts}", flush=True)
+    print(f"launches, multi-device main path (one run of each stage): {mesh_counts}",
+          flush=True)
     idle = [k for k in MESH_KERNELS if mesh_counts[k] == 0]
     if idle:
         raise AssertionError(f"the multi-device path did not launch {idle}")
@@ -1610,11 +1772,16 @@ def main() -> int:
               f"{row['launches']} launches in {row['timed']} timed calls", flush=True)
         for why in row["paced"]:
             print(f"  {name} {why}", flush=True)
+        if row["library_ms"] is not None:
+            print(f"library {name}: {row['library_ms']:.6f} ms device; the kernel is "
+                  f"{'faster' if row['ms'] < row['library_ms'] else 'not faster'} "
+                  f"({row['library_ms'] / row['ms']:.2f}x)", flush=True)
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=counts[name],
                             max_abs_err=row["max_abs_err"], ms=row["ms"],
                             call_ms=row["call_ms"], plain_ms=row["plain_ms"],
-                            bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=row["library_ms"]))
     # what a redesign of each kernel could save on the main paths at most:
     # main-path launches x (device ms - bound ms) per launch of the timed calls
     order = []

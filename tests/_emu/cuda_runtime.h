@@ -11,13 +11,15 @@
 // std::barrier of its own for __syncwarp(); a shuffle writes the lane's value
 // into its exchange slot, waits on the warp's barrier, reads the source
 // lane's slot and waits again, so every lane of the warp must take part, as
-// the kernels' full-mask shuffles require.
+// the kernels' full-mask shuffles require; __reduce_min_sync likewise
+// reads every lane's slot between two waits.
 // Stream and memory calls act at once on host memory.  Device intrinsics map
 // to their host meanings: __fmul_rn to one float product (volatile, built
 // with -ffp-contract=off), __float2int_rz to C truncation.
 #pragma once
 #include <algorithm>
 #include <barrier>
+#include <climits>
 #include <cmath>
 #include <cstdint>
 #include <cstdlib>
@@ -61,16 +63,29 @@ inline int __shfl_xor_sync(unsigned, int v, int mask, int = 32) {
 inline int __shfl_sync(unsigned, int v, int src, int width = 32) {
   return emu_shfl(v, (threadIdx.x & 31 & ~(width - 1)) + src % width);
 }
+inline int __reduce_min_sync(unsigned, int v) {
+  // every lane of the warp takes part (full mask)
+  const unsigned base = threadIdx.x & ~31u;
+  const unsigned n = std::min(32u, blockDim.x * blockDim.y * blockDim.z - base);
+  emu_lane_slot[threadIdx.x] = v;
+  __syncwarp();
+  int m = v;
+  for (unsigned l = 0; l < n; ++l) m = std::min(m, emu_lane_slot[base + l]);
+  __syncwarp();
+  return m;
+}
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaMemcpyDeviceToDevice = 3,
-       cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 8, cudaDevAttrMultiProcessorCount = 16 };
 struct cudaFuncAttributes { int numRegs = 0; size_t localSizeBytes = 0, sharedSizeBytes = 0; };
 inline int cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(int) { return "emu"; }
 inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) { memset(p, v, n); return 0; }
 inline int cudaMemcpyAsync(void* d, const void* s, size_t n, int, cudaStream_t) { memcpy(d, s, n); return 0; }
 inline int cudaFuncSetAttribute(const void*, int, int) { return 0; }
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, int, int) { *v = 1; return 0; }  // one SM
 inline int cudaFuncGetAttributes(cudaFuncAttributes* a, const void*) { *a = {}; return 0; }
 template <class F>
 int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) { *n = 1; return 0; }
@@ -80,7 +95,7 @@ inline int __float2int_rz(float f) { return (int)f; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __int2float_rn(int i) { return (float)i; }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_RELAXED); }
-inline int emu_sm_buf[1 << 16];
+alignas(16) inline int emu_sm_buf[1 << 16];
 #define sm emu_sm_buf
 template <class K, class... A>
 void emu_launch(K kernel, dim3 grid, dim3 block, size_t, A... args) {

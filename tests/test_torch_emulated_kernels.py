@@ -1,6 +1,6 @@
-"""The SATD, RMD, deblocking, MC and ALF-filter CUDA sources, built for the
-CPU by the test-support emulation of tests/_emu, against their plain torch
-versions.
+"""The SATD, RMD, deblocking, MC, FIR and ALF-filter CUDA sources, built for
+the CPU by the test-support emulation of tests/_emu, against their plain
+torch versions.
 
 No card and no nvcc here, so the kernels themselves run on the chip only
 (chip_smoke.py and the `cuda` tests hold them to the plain versions there).
@@ -13,7 +13,9 @@ and end part-way into the next; and the deblocking tiles (halos, decisions
 in shared memory, Cb and Cr in one launch) through the port's own wrappers
 on planes of several tiles each way with ragged right and bottom tiles;
 the MC tile groups (plane pointers by value, windows and passes in shared
-memory) and the ALF filter tiles (a template per component, halo rows and
+memory), the FIR job groups (up to six a launch, spans staged in shared
+memory from any alignment), the RMD reduction's warp reductions (crafted
+ties) and the ALF filter tiles (a template per component, halo rows and
 columns, out-of-halo row offsets read from the plane) through their
 wrappers.  Tolerance 0.
 """
@@ -35,6 +37,7 @@ from vtm_tpu_torch.ops import alf_kernel as AK
 from vtm_tpu_torch.ops import deblock_kernel as DK
 from vtm_tpu_torch.ops import mc_kernel as MK
 from vtm_tpu_torch.ops import rdcost as RC
+from vtm_tpu_torch.ops import refine_kernel as RK
 
 PIC_H, PIC_W = 80, 96
 CLASSES = intra_class_list(EncoderConfig(width=PIC_W, height=PIC_H))
@@ -47,7 +50,8 @@ def lib(tmp_path_factory):
     from _emu import build
 
     return build.load(str(tmp_path_factory.mktemp("emu")),
-                      ["rdcost.cu", "rmd.cu", "deblock.cu", "mc.cu", "alf.cu"])
+                      ["rdcost.cu", "rmd.cu", "deblock.cu", "mc.cu", "alf.cu",
+                       "refine.cu"])
 
 
 def test_satd_batch(lib):
@@ -318,3 +322,117 @@ def test_alf_filter(emu_launch, luma, bd, aligned):
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     np.testing.assert_array_equal(want.numpy()[ctu:2 * ctu], src[ctu:2 * ctu])
     assert near.any() and not np.array_equal(want.numpy(), src)
+
+
+def _reduce_rows(rng, n_mip: int) -> np.ndarray:
+    """Cost rows of 67 + 2 n_mip columns with crafted ties: at lane 0 (column
+    0 against 40), at lane 31 (31 against 63), across the 32-column
+    boundaries (32 against 64, 33 against 1), between the MIP columns (the
+    first against the last, two in one lane), and rows of a few values
+    (ties everywhere), of all INT32_MAX and of negative costs."""
+    ncols = RMD.N_ANG + 2 * n_mip
+    big = np.iinfo(np.int32).max
+    rows = [rng.integers(1000, 5000, ncols) for _ in range(6)]
+    for cols in ((0, 40), (31, 63), (32, 64), (1, 33), (63, 66), (66, 64)):
+        r = rng.integers(1000, 5000, ncols)
+        r[list(cols)] = 7
+        rows.append(r)
+    if n_mip:
+        m = 2 * n_mip
+        for cols in ((0, m - 1), (m - 1, 0), (m // 2, m - 1)):
+            r = rng.integers(1000, 5000, ncols)
+            r[[RMD.N_ANG + c for c in cols]] = 3
+            rows.append(r)
+    rows += [rng.integers(0, 3, ncols) for _ in range(4)]
+    rows += [np.full(ncols, big), rng.integers(-(1 << 31), 0, ncols)]
+    return np.stack(rows).astype(np.int32)
+
+
+@pytest.mark.parametrize("n_mip", [0, 6, 8, 16])
+def test_rmd_reduce(emu_launch, n_mip):
+    """vtm_rmd_reduce (a warp a position) through reduce_cuda against
+    reduce_plain on crafted ties, on more positions than the grid has warps
+    (the stub's one SM: 8 blocks of 8), so that each warp walks several;
+    a column count that does not add up is refused."""
+    rng = np.random.default_rng(80 + n_mip)
+    rows = _reduce_rows(rng, n_mip)
+    out = torch.from_numpy(np.concatenate([rows, rng.permutation(np.tile(rows, (8, 1)))]))
+    assert out.shape[0] > 2 * 64 + 8 and out.shape[1] % 32
+    np.testing.assert_array_equal(RMD.reduce_cuda(out, n_mip).numpy(),
+                                  RMD.reduce_plain(out, n_mip).numpy())
+    with pytest.raises(RuntimeError, match="vtm_rmd_reduce"):
+        RMD.KN.launch("vtm_rmd_reduce", out.device, out.data_ptr(), 1, out.shape[1],
+                      2 * n_mip + 2, out.data_ptr())
+
+
+def _fir_case(rng, n, taps, w, h, bd):
+    return [torch.from_numpy(a) for a in T.fir_blocks_case(rng, n, taps, w, h, bd)]
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("taps,w,h", [(8, 16, 8), (8, 8, 16), (4, 8, 8), (4, 4, 8)])
+def test_fir_blocks(emu_launch, taps, w, h, bd):
+    """vtm_fir_blocks through fir_blocks_cuda against fir_blocks_plain:
+    one block of jobs and part of the next (ragged N), origins past every
+    buffer edge, buffers whose spans start at every word offset of 16 bytes
+    (the jobs' buffers of odd size, and the whole set 4 bytes off), and an
+    output 4 bytes off a 16-byte boundary."""
+    rng = np.random.default_rng(90 + bd + taps + w)
+    per_block = 256 // w  # jobs a thread block (one thread a column)
+    n = per_block + per_block // 2 + 3
+    args = _fir_case(rng, n, taps, w, h, bd)
+    assert (args[0].shape[1] * args[0].shape[2]) % 2  # odd spans: every lead
+    kw = dict(w=w, h=h, taps=taps, bd=bd)
+    want = RK.fir_blocks_plain(*args, **kw)
+    np.testing.assert_array_equal(RK.fir_blocks_cuda(*args, **kw).numpy(), want.numpy())
+    args[0] = _misaligned(args[0].numpy())
+    out = _misaligned(np.full((n, h, w), -1))
+    RK.fir_blocks_cuda(*args, **kw, out=out)
+    np.testing.assert_array_equal(out.numpy(), want.numpy())
+
+
+@pytest.fixture
+def fir_launches(emu_launch, monkeypatch):
+    """The emulated launches, counted; dmvr_final_pack takes its card
+    branch on CPU tensors."""
+    calls = []
+    launch = KN.launch
+
+    def counted(name, device, *args):
+        calls.append(name)
+        launch(name, device, *args)
+    monkeypatch.setattr(KN, "launch", counted)
+    monkeypatch.setattr(RK, "pick", lambda t, on_card, plain: on_card)
+    return calls
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_dmvr_final_pack_one_launch(fir_launches, lib, bd):
+    """dmvr_final_pack's six groups (both lists' luma, 8 taps, and four
+    chroma groups, 4 taps) in one launch equal six one-group launches and
+    the plain version; a seventh group is refused by the wrapper and by the
+    C entry point, and so is a group of another tap count."""
+    rng = np.random.default_rng(95 + bd)
+    n = 21
+    l0, l1 = (_fir_case(rng, n, 8, 16, 16, bd) for _ in range(2))
+    cargs = [_fir_case(rng, n, 4, 8, 8, bd) for _ in range(4)]
+    kw = dict(w=16, h=16, wc=8, hc=8, bd=bd)
+    got = RK.dmvr_final_pack(l0, l1, cargs, **kw)
+    assert fir_launches == ["vtm_fir_blocks"]
+    ones = [RK.fir_blocks_cuda(*a, w=16, h=16, taps=8, bd=bd) for a in (l0, l1)]
+    ones += [RK.fir_blocks_cuda(*a, w=8, h=8, taps=4, bd=bd) for a in cargs]
+    assert len(fir_launches) == 7
+    np.testing.assert_array_equal(got.numpy(), torch.cat([o.view(-1) for o in ones]).numpy())
+    plain = [RK.fir_blocks_plain(*a, w=16, h=16, taps=8, bd=bd) for a in (l0, l1)]
+    plain += [RK.fir_blocks_plain(*a, w=8, h=8, taps=4, bd=bd) for a in cargs]
+    np.testing.assert_array_equal(got.numpy(), torch.cat([p.view(-1) for p in plain]).numpy())
+    groups = [(tuple(a), 8, 8, 4, 0) for a in cargs + cargs[:3]]
+    with pytest.raises(ValueError, match="at most 6"):
+        RK.fir_groups_cuda(groups, bd, torch.empty(n * 64, dtype=torch.int32))
+    out = torch.empty(n * 64, dtype=torch.int32)
+    for count, taps in ((7, 4), (1, 6)):
+        ptrs = (ctypes.c_void_p * (5 * count))(*(p.data_ptr() for a in (cargs * 2)[:count]
+                                                 for p in a))
+        dims = (ctypes.c_int * (7 * count))(*([n, 11, 11, 8, 8, taps, 0] * count))
+        assert lib.vtm_fir_blocks(count, ctypes.addressof(ptrs), ctypes.addressof(dims), bd,
+                                  out.data_ptr(), None) != 0

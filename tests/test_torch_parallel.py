@@ -13,7 +13,8 @@ both, and every sample result must be equal (tolerance 0):
   - the two entries that width sharding adds to the filter kernels
     (`luma_ver_delta` on a shard with a real halo, `sao_apply_ext`);
   - the port's own dry run (`dryrun_multichip(n, device="cpu")`), in this
-    process and in one where jax and vtm_tpu cannot be imported.
+    process and in one where jax and vtm_tpu cannot be imported, and its
+    `timed_runs` (the launches of one run; later runs must match it).
 """
 
 import importlib
@@ -261,6 +262,29 @@ def test_dryrun_multichip_cpu(n):
     assert rep["gop"] * rep["tile"] == n and rep["devices"] == ["cpu"]
     assert rep["luma_pictures"] == rep["gop"] and rep["mc_jobs"] >= MC.MIN_MC_JOBS
     assert rep["full_chain_pictures"] >= rep["gop"]
+    assert rep["launches"] == {}  # CPU lanes take the plain versions
+
+
+def test_timed_runs_counts_one_run(monkeypatch):
+    """timed_runs returns the launches of one run, and refuses runs that
+    launch other kernels or other counts than the first."""
+    from vtm_tpu_torch import kernels as KN
+
+    monkeypatch.setattr(KN, "_launches", dict.fromkeys(KN.KERNELS, 0))
+    runs = iter([2, 2, 2, 3])
+
+    def stage(n):
+        KN._launches["vtm_alf_classify"] += n
+        KN._launches["vtm_mc_tiles"] += 1
+        return n
+
+    out, secs, one = MC.timed_runs(lambda: stage(next(runs)), 3)
+    assert out == 2 and len(secs) == 3
+    assert one == {"vtm_alf_classify": 2, "vtm_mc_tiles": 1}
+    assert KN.launch_counts()["vtm_alf_classify"] == 6
+    runs = iter([2, 3])
+    with pytest.raises(AssertionError, match="run 2 of 2"):
+        MC.timed_runs(lambda: stage(next(runs)), 2)
 
 
 def test_capture_records_only_its_own_thread():

@@ -39,8 +39,8 @@
 //   4. turns columns into rows through the tile's own window in shared
 //      memory and writes the group's contiguous outputs, 16 bytes a thread
 //      (luma) or 8 (chroma).
-// That is 480 multiply-adds a luma tile, where fir.cuh:fir_acc (one thread
-// a sample, the horizontal pass redone for each) takes 1,152.
+// That is 480 multiply-adds a luma tile, where one thread a sample (the
+// horizontal pass redone for each) takes 1,152.
 
 #include "fir.cuh"
 

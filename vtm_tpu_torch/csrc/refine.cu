@@ -8,9 +8,24 @@
 //     applies the early-termination bias, the tie rule (the centre wins any
 //     tie with the minimum; else the first minimum in raster order) and
 //     the sub-pel error surface.
-//   * fir_blocks (composed into dmvr_final_pack by the wrapper) ->
-//     vtm_fir_blocks: one thread per output sample, fir.cuh's two passes
-//     with reads clamped to the block's own buffer, 14-bit result.
+//   * fir_blocks and dmvr_final_pack -> vtm_fir_blocks: the two-pass FIR
+//     of the jax form over each job's own buffer (rows and columns of the
+//     window clamped into it), first pass (sum + off1) >> s1, sums wrapping
+//     in uint32_t, 14-bit result acc >> 6.  One launch takes up to six
+//     groups of jobs by value (a __grid_constant__ struct; taps 8 or 4 a
+//     group, one instantiation each), so dmvr_final_pack's two luma and
+//     four chroma groups are one launch.  A thread block takes a run of
+//     consecutive jobs of one group, whose buffers lie back to back: it
+//     loads that span into shared memory once (16-byte loads between the
+//     ragged ends), the jobs' fields and coefficients once a job; a thread
+//     takes one column of one job, its first pass down the window's rows
+//     from shared memory (the clamped columns computed once) into a ring of
+//     `taps` registers, the second pass from the ring, each output stored
+//     where it belongs: a warp's store covers whole rows of its jobs (64
+//     bytes a luma row, 32 a chroma row), full 32-byte sectors.  (Staging
+//     the outputs in shared memory for 16-byte stores ran slower: more
+//     shared memory a block, fewer blocks, a store phase after the
+//     passes.)  No division in the per-sample path; 32-bit offsets.
 //   * bdof_blend_batch -> vtm_bdof_blend: one thread block per sub-block
 //     (h, w in {8, 16}).  Gradients and the per-sample products are made
 //     once per inner sample in shared memory; the replicated ring of the
@@ -21,10 +36,11 @@
 // left shift of a possibly negative value and every sum that could
 // overflow is done in uint32_t and cast back.
 //
-// Bound on the H100: all three are small per sub-PU (a 23x23 window in,
-// 12 bytes out for the search; 16x16 samples for the others) and run at
-// the decoder's batch sizes of tens to thousands of sub-PUs, so launch and
-// job upload, not the card, set their time.
+// Bound on the H100: bytes.  All three are small per sub-PU (a 23x23
+// window in, 12 bytes out for the search; 16x16 samples for the others);
+// at the decoder's batch sizes of tens to thousands of sub-PUs launch and
+// job upload set their time, at a 1080p picture's thousands the bytes:
+// the FIR reads each buffer sample once and writes each output once.
 
 #include "fir.cuh"
 
@@ -136,26 +152,145 @@ __global__ void dmvr_search_kernel(const int* __restrict__ pre0,
   out[2 * n + sp] = min_cost;
 }
 
+// ---------------------------------------------------------------------------
+// vtm_fir_blocks: groups of jobs, each job a block of h x w samples filtered
+// from its own H x W buffer (the jobs of a group lie back to back).
+
+constexpr int FIR_MAX_GROUPS = 6;  // dmvr_final_pack: 2 luma + 4 chroma
+constexpr int FIR_THREADS = 256;
+constexpr int FIR_MAX_SMEM = 227 * 1024;  // dynamic shared bytes a block can have
+
+struct FirGroup {
+  const int* bufs;  // [n, H, W]
+  const int* x0;    // [n]: the block's origin in its buffer
+  const int* y0;
+  const int* cfh;   // [n, taps]
+  const int* cfv;
+  int n, H, W, w, h, taps;
+  int out_off;      // the group's first output sample
+  int jobs;         // jobs a thread block
+  int block0;       // the group's first thread block
+};
+
+struct FirJobs {
+  FirGroup g[FIR_MAX_GROUPS];
+  int ngroups;
+};
+
+__host__ __device__ inline int fir_round4(int v) { return (v + 3) & ~3; }
+
+// Shared words of a block of J jobs: the jobs' fields and coefficients, and
+// the span of their buffers (with room for a lead of up to 3 words, so that
+// 16-byte aligned quads of device memory land on 16-byte aligned quads of
+// shared memory).
+__host__ __device__ inline int fir_field_words(int J, int taps) {
+  return fir_round4(2 * J * (1 + taps));
+}
+__host__ __device__ inline int fir_span_words(int J, int HW) { return fir_round4(J * HW + 3); }
+
+// dst[lead + i] = src[i] for i < count (lead: src's word offset in its 16
+// bytes; dst 16-byte aligned): 16-byte loads and stores for the aligned
+// quads, single samples at the ragged ends.
+__device__ __forceinline__ int fir_stage(const int* __restrict__ src, int count,
+                                         int* __restrict__ dst) {
+  const int t = threadIdx.x;
+  const int lead = (int)(((uintptr_t)src >> 2) & 3);
+  const int head = min(count, (4 - lead) & 3);
+  const int nq = (count - head) >> 2;
+  const int4* s4 = reinterpret_cast<const int4*>(src + head);
+  int4* d4 = reinterpret_cast<int4*>(dst + lead + head);
+  for (int q = t; q < nq; q += FIR_THREADS) d4[q] = s4[q];
+  const int rest = head + 4 * nq;
+  if (t < head) dst[lead + t] = src[t];
+  if (t < count - rest) dst[lead + rest + t] = src[rest + t];
+  return lead;
+}
+
+// Thread block `b` of group G: jobs b J ... b J + J - 1.
 template <int TAPS>
-__global__ void fir_blocks_kernel(const int* __restrict__ bufs, int n, int H,
-                                  int W, const int* __restrict__ x0,
-                                  const int* __restrict__ y0,
-                                  const int* __restrict__ cfh,
-                                  const int* __restrict__ cfv, int w, int h,
-                                  int bd, int* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int hw = h * w;
-  if (i >= (long long)n * hw) return;
-  const int j = (int)(i / hw);
-  const int s = (int)(i % hw);
-  const int ty = s / w, tx = s % w;
-  const int half = TAPS / 2 - 1;
-  const int hr = max(2, IF_INTERNAL_PREC - bd);
-  const int acc = fir_acc<TAPS>(bufs + (long long)j * H * W, H, W,
-                                x0[j] - half + tx, y0[j] - half + ty,
-                                cfh + (long long)j * TAPS,
-                                cfv + (long long)j * TAPS, 6 - hr);
-  out[i] = acc >> 6;
+__device__ __forceinline__ void fir_group(const FirGroup& G, int b, int bd,
+                                          int* __restrict__ out, int* smem) {
+  const int J = G.jobs, H = G.H, W = G.W, w = G.w, h = G.h;
+  const int HW = H * W, hw = h * w;
+  const int j0 = b * J;
+  const int nj = min(J, G.n - j0);
+  int* s_x0 = smem;
+  int* s_y0 = s_x0 + J;
+  int* s_ch = s_y0 + J;
+  int* s_cv = s_ch + J * TAPS;
+  int* s_span = smem + fir_field_words(J, TAPS);
+  const int t = threadIdx.x;
+
+  // 1. the jobs' fields and coefficients, and their buffers' span, each
+  // read once
+  for (int i = t; i < nj; i += FIR_THREADS) {
+    s_x0[i] = G.x0[j0 + i];
+    s_y0[i] = G.y0[j0 + i];
+  }
+  for (int i = t; i < nj * TAPS; i += FIR_THREADS) {
+    s_ch[i] = G.cfh[j0 * TAPS + i];
+    s_cv[i] = G.cfv[j0 * TAPS + i];
+  }
+  const int lead = fir_stage(G.bufs + j0 * HW, nj * HW, s_span);
+  __syncthreads();
+
+  // 2. thread (job jj, column c): the first pass down the window's rows at
+  // column c (columns clamped once), each row's sum into a ring of TAPS
+  // registers, and from the ring the second pass of every output row of
+  // the column; slot k of the ring holds the rows r = k mod TAPS, so that
+  // the ring is indexed by constants
+  const int jj = t / w, c = t - jj * w;
+  if (jj < nj) {
+    const int half = TAPS / 2 - 1;
+    const int* span = s_span + lead + jj * HW;
+    const int ox = s_x0[jj] - half + c, oy = s_y0[jj] - half;
+    int cx[TAPS], ch[TAPS], cv[TAPS];
+#pragma unroll
+    for (int k = 0; k < TAPS; ++k) {
+      cx[k] = clampi(ox + k, W);
+      ch[k] = s_ch[jj * TAPS + k];
+      cv[k] = s_cv[jj * TAPS + k];
+    }
+    const int hr = max(2, IF_INTERNAL_PREC - bd);
+    const int s1 = 6 - hr;
+    const uint32_t off1 = (uint32_t)(-(IF_OFFS << s1));
+    int* o = out + G.out_off + (j0 + jj) * hw + c;
+    const int rows = h + TAPS - 1;
+    int ring[TAPS];
+    for (int r0 = 0; r0 < rows; r0 += TAPS) {
+#pragma unroll
+      for (int k = 0; k < TAPS; ++k) {
+        const int r = r0 + k;
+        if (r < rows) {
+          const int* row = span + clampi(oy + r, H) * W;
+          uint32_t acc = 0;
+#pragma unroll
+          for (int m = 0; m < TAPS; ++m) acc += (uint32_t)ch[m] * (uint32_t)row[cx[m]];
+          ring[k] = (int)(acc + off1) >> s1;
+          if (r >= TAPS - 1) {
+            uint32_t v = 0;
+#pragma unroll
+            for (int m = 0; m < TAPS; ++m)
+              v += (uint32_t)cv[m] * (uint32_t)ring[(k + 1 + m) % TAPS];
+            o[(r - (TAPS - 1)) * w] = (int)v >> 6;
+          }
+        }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(FIR_THREADS)
+    fir_blocks_kernel(const __grid_constant__ FirJobs jobs, int bd, int* __restrict__ out) {
+  extern __shared__ int sm[];
+  int gi = 0;
+  while (gi + 1 < jobs.ngroups && (int)blockIdx.x >= jobs.g[gi + 1].block0) ++gi;
+  const FirGroup& G = jobs.g[gi];
+  if (G.taps == 8) {
+    fir_group<8>(G, (int)blockIdx.x - G.block0, bd, out, sm);
+  } else {
+    fir_group<4>(G, (int)blockIdx.x - G.block0, bd, out, sm);
+  }
 }
 
 constexpr int BDOF_MAX = 16;
@@ -264,23 +399,53 @@ VTM_API int vtm_dmvr_search(const int* pre0, const int* pre1, const int* f0x,
   return launch_status();
 }
 
-VTM_API int vtm_fir_blocks(const int* bufs, int n, int H, int W, const int* x0,
-                           const int* y0, const int* cfh, const int* cfv, int w,
-                           int h, int taps, int bd, int* out, void* stream) {
-  if (n == 0) return 0;
-  const long long total = (long long)n * h * w;
-  const int block = 256;
-  const dim3 grid((unsigned)((total + block - 1) / block));
-  cudaStream_t st = (cudaStream_t)stream;
-  if (taps == 8) {
-    fir_blocks_kernel<8><<<grid, block, 0, st>>>(bufs, n, H, W, x0, y0, cfh,
-                                                 cfv, w, h, bd, out);
-  } else if (taps == 4) {
-    fir_blocks_kernel<4><<<grid, block, 0, st>>>(bufs, n, H, W, x0, y0, cfh,
-                                                 cfv, w, h, bd, out);
-  } else {
-    return (int)cudaErrorInvalidValue;
+// ngroups (1..FIR_MAX_GROUPS) job groups: ptrs holds 5 device pointers a
+// group (bufs, x0, y0, cfh, cfv), dims 7 ints a group (n, H, W, w, h, taps,
+// out_off); the group's outputs go to out + out_off, [n, h, w].  Another
+// taps than 8 or 4, a buffer span or output past 2^31 - 1 samples (the
+// kernel's offsets are 32-bit) or more groups are refused.
+VTM_API int vtm_fir_blocks(int ngroups, const int* const* ptrs, const int* dims,
+                           int bd, int* out, void* stream) {
+  if (ngroups < 1 || ngroups > FIR_MAX_GROUPS) return (int)cudaErrorInvalidValue;
+  FirJobs jobs = {};
+  jobs.ngroups = ngroups;
+  int blocks = 0, smem_words = 0;
+  for (int i = 0; i < ngroups; ++i) {
+    FirGroup& g = jobs.g[i];
+    const int* d = dims + 7 * i;
+    g.bufs = ptrs[5 * i];
+    g.x0 = ptrs[5 * i + 1];
+    g.y0 = ptrs[5 * i + 2];
+    g.cfh = ptrs[5 * i + 3];
+    g.cfv = ptrs[5 * i + 4];
+    g.n = d[0], g.H = d[1], g.W = d[2], g.w = d[3], g.h = d[4], g.taps = d[5];
+    g.out_off = d[6];
+    if ((g.taps != 8 && g.taps != 4) || g.n < 0 || g.H < 1 || g.W < 1 || g.w < 1 ||
+        g.h < 1 || g.w > FIR_THREADS || g.out_off < 0 ||
+        (long long)g.n * g.H * g.W > 0x7fffffff || (long long)g.n * g.taps > 0x7fffffff ||
+        g.out_off + (long long)g.n * g.h * g.w > 0x7fffffff)
+      return (int)cudaErrorInvalidValue;
+    // jobs a block: a thread a column, as many as the shared memory holds
+    int J = FIR_THREADS / g.w, words = 0;
+    for (; J > 0; --J) {
+      words = fir_field_words(J, g.taps) + fir_span_words(J, g.H * g.W);
+      if ((long long)words * 4 <= FIR_MAX_SMEM) break;
+    }
+    if (J == 0) return (int)cudaErrorInvalidValue;
+    g.jobs = J;
+    g.block0 = blocks;
+    blocks += (g.n + J - 1) / J;
+    smem_words = max(smem_words, words);
   }
+  if (blocks == 0) return 0;
+  const size_t smem = (size_t)smem_words * 4;
+  if (smem > 48 * 1024) {
+    const int e = (int)cudaFuncSetAttribute(
+        (const void*)fir_blocks_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e) return e;
+  }
+  fir_blocks_kernel<<<blocks, FIR_THREADS, smem, (cudaStream_t)stream>>>(jobs, bd, out);
   return launch_status();
 }
 

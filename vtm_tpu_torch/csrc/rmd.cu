@@ -28,9 +28,12 @@
 //     (weights staged in shared memory), the reduced predictions kept
 //     (at most 768 ints a position); a lane upsamples its tile row in
 //     registers from them and the boundaries, and the warp takes the SATD.
-//   rmd_reduce_kernel  one thread per position: min and first argmin over
-//     the 67 native columns, planar (column 0), and min and first argmin
-//     over the MIP columns (2^30 and 0 without MIP).
+//   rmd_reduce_kernel  a warp per position, lanes on consecutive columns:
+//     min and first argmin over the 67 native columns, planar (column 0),
+//     and min and first argmin over the MIP columns (2^30 and 0 without
+//     MIP), each by a lane's own minimum and two warp reductions
+//     (__reduce_min_sync on the value, then on the column among the lanes
+//     that hold it).  Bound: bytes, the table read once.
 //
 // Each class is its own instantiation: the tile shape, the tile count, the
 // loop bounds and the shared-memory layout are compile-time constants.
@@ -43,6 +46,8 @@
 // per predicted sample and mode: 4 multiply-adds, the tap window's shared
 // loads, the butterflies and the shuffles); device memory moves only the
 // source windows (L2-resident), the tables and one int32 per column.
+
+#include <climits>
 
 #include "satd.cuh"
 
@@ -502,28 +507,65 @@ rmd_mip_kernel(const int* __restrict__ srcpad, int Hp, int Wp,
 // ---------------------------------------------------------------------------
 // reduction
 
-__global__ void rmd_reduce_kernel(const int* __restrict__ out, int P,
-                                  int ncols, int n_mip_cols,
-                                  int* __restrict__ red) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
+// A warp a position: lane l reads columns l, l + 32, ... of the row (the
+// warp's loads coalesced) and keeps, for the angular and for the MIP
+// columns, its minimum and the first column that holds it; the warp takes
+// the minimum value, then the least column among the lanes that hold it:
+// the first minimum in the native column order, as jnp.argmin takes it.
+// The grid holds as many warps as the card keeps resident; each warp walks
+// the positions with its next position's loads in flight while it reduces
+// the current one.
+constexpr int REDUCE_THREADS = 256;
+constexpr int REDUCE_LOADS = 4;  // columns a lane: 32 x 4 >= 67 + 2 x 16
+
+__device__ __forceinline__ void reduce_load(const int* __restrict__ out, int p, int P,
+                                            int ncols, int lane, int (&v)[REDUCE_LOADS]) {
   const int* row = out + (long long)p * ncols;
-  int best = row[0], arg = 0;
-  for (int c = 1; c < N_ANG; ++c)
-    if (row[c] < best) best = row[c], arg = c;
-  int* r = red + (long long)p * 5;
-  r[0] = best;
-  r[1] = arg;
-  r[2] = row[0];
-  if (n_mip_cols > 0) {
-    int mb = row[N_ANG], ma = 0;
-    for (int c = 1; c < n_mip_cols; ++c)
-      if (row[N_ANG + c] < mb) mb = row[N_ANG + c], ma = c;
-    r[3] = mb;
-    r[4] = ma;
-  } else {
-    r[3] = 1 << 30;
-    r[4] = 0;
+#pragma unroll
+  for (int k = 0; k < REDUCE_LOADS; ++k) {
+    const int c = lane + 32 * k;
+    v[k] = p < P && c < ncols ? row[c] : INT_MAX;
+  }
+}
+
+__global__ void __launch_bounds__(REDUCE_THREADS)
+    rmd_reduce_kernel(const int* __restrict__ out, int P, int ncols, int n_mip_cols,
+                      int* __restrict__ red) {
+  const int lane = threadIdx.x & 31;
+  const int step = gridDim.x * (REDUCE_THREADS / 32);
+  int p = blockIdx.x * (REDUCE_THREADS / 32) + (threadIdx.x >> 5);
+  int next[REDUCE_LOADS];
+  reduce_load(out, p, P, ncols, lane, next);
+  for (; p < P; p += step) {  // uniform across the warp
+    int v[REDUCE_LOADS];
+#pragma unroll
+    for (int k = 0; k < REDUCE_LOADS; ++k) v[k] = next[k];
+    reduce_load(out, p + step, P, ncols, lane, next);
+    int ab = INT_MAX, aa = INT_MAX, mb = INT_MAX, ma = INT_MAX;
+#pragma unroll
+    for (int k = 0; k < REDUCE_LOADS; ++k) {
+      const int c = lane + 32 * k;
+      if (c < N_ANG) {
+        if (v[k] < ab || aa == INT_MAX) ab = v[k], aa = c;
+      } else if (c < ncols) {
+        if (v[k] < mb || ma == INT_MAX) mb = v[k], ma = c - N_ANG;
+      }
+    }
+    const unsigned all = 0xffffffffu;
+    const int best = __reduce_min_sync(all, ab);
+    const int arg = __reduce_min_sync(all, ab == best ? aa : INT_MAX);
+    const int mbest = __reduce_min_sync(all, mb);
+    const int marg = __reduce_min_sync(all, mb == mbest ? ma : INT_MAX);
+    const int planar = __shfl_sync(all, v[0], 0);
+    const bool mip = n_mip_cols > 0;
+    if (lane < 5) {
+      const int r = lane == 0   ? best
+                    : lane == 1 ? arg
+                    : lane == 2 ? planar
+                    : lane == 3 ? (mip ? mbest : 1 << 30)
+                                : (mip ? marg : 0);
+      red[(long long)p * 5 + lane] = r;
+    }
   }
 }
 
@@ -596,9 +638,17 @@ VTM_API int vtm_rmd_mip(const int* srcpad, int Hp, int Wp, const int* xs,
 
 VTM_API int vtm_rmd_reduce(const int* out, int P, int ncols, int n_mip_cols,
                            int* red, void* stream) {
+  if (ncols != N_ANG + n_mip_cols || n_mip_cols < 0 || ncols > 32 * REDUCE_LOADS)
+    return (int)cudaErrorInvalidValue;
   if (P == 0) return 0;
-  const int block = 128;
-  rmd_reduce_kernel<<<(P + block - 1) / block, block, 0, (cudaStream_t)stream>>>(
+  // as many blocks as the card keeps resident (2048 threads an SM), or fewer
+  int dev = 0, sms = 0;
+  int e = (int)cudaGetDevice(&dev);
+  if (!e) e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e) return e;
+  constexpr int per_block = REDUCE_THREADS / 32;
+  const int blocks = min((P + per_block - 1) / per_block, sms * (2048 / REDUCE_THREADS));
+  rmd_reduce_kernel<<<blocks, REDUCE_THREADS, 0, (cudaStream_t)stream>>>(
       out, P, ncols, n_mip_cols, red);
   return launch_status();
 }

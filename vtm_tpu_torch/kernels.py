@@ -51,7 +51,7 @@ _SIGNATURES = {
     "vtm_mc_tiles": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                      _I, _P, _P),
     "vtm_dmvr_search": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
-    "vtm_fir_blocks": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P),
+    "vtm_fir_blocks": (_I, _P, _P, _I, _P, _P),
     "vtm_bdof_blend": (_P, _P, _I, _I, _I, _I, _P, _P),
     "vtm_satd_batch": (_P, _P, _LL, _I, _I, _P),
     "vtm_rmd_angular": (_P, _I, _I, _P, _P, _I, _P, _I, _I, _I, _P, _I, _P),

@@ -7,12 +7,15 @@ applyBiOptFlow), batched over 16x16-class sub-PUs.
 
 * CPU tensors: `*_plain`.
 * CUDA tensors: csrc/refine.cu: `vtm_dmvr_search` (one thread block per
-  sub-PU), `vtm_fir_blocks` (one thread per output sample) and
-  `vtm_bdof_blend` (one thread block per sub-block).
+  sub-PU), `vtm_fir_blocks` (up to MAX_GROUPS groups of jobs a launch, a
+  thread block a run of a group's jobs, a thread a job's column; one
+  launch for all of `dmvr_final_pack`) and `vtm_bdof_blend` (one thread
+  block per sub-block).
 """
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 
 import numpy as np
@@ -28,6 +31,7 @@ IF_OFFS = 1 << (IF_INTERNAL_PREC - 1)
 CENTRE = 12  # index of offset (0, 0) in the raster order of the search
 # xBIPMVRefine search offsets (dx, dy) in evaluation order (raster in [-2, 2])
 _OFFS = [(dx, dy) for dy in range(-2, 3) for dx in range(-2, 3)]
+MAX_GROUPS = 6  # job groups a vtm_fir_blocks launch (csrc/refine.cu FIR_MAX_GROUPS)
 
 
 @lru_cache(maxsize=None)
@@ -186,23 +190,44 @@ def fir_blocks_plain(bufs, x0, y0, cfh, cfv, w: int, h: int, taps: int, bd: int)
     return acc >> 6
 
 
+def fir_groups_cuda(groups, bd: int, out: torch.Tensor) -> torch.Tensor:
+    """csrc/refine.cu `vtm_fir_blocks` on up to MAX_GROUPS groups in one
+    launch.  groups: ((bufs, x0, y0, cfh, cfv), w, h, taps, offset) each,
+    its [N, h, w] outputs written to the flat int32 `out` from `offset`."""
+    if not 1 <= len(groups) <= MAX_GROUPS:
+        raise ValueError(f"fir_blocks: {len(groups)} groups, at most {MAX_GROUPS} a launch")
+    dev = out.device
+    KN.check(out, "out", torch.int32, dev)
+    ptrs, dims, total = [], [], 0
+    for (bufs, x0, y0, cfh, cfv), w, h, taps, offset in groups:
+        N, H, W = bufs.shape
+        KN.check(bufs, "bufs", torch.int32, dev)
+        KN.check(x0, "x0", torch.int32, dev, (N,))
+        KN.check(y0, "y0", torch.int32, dev, (N,))
+        KN.check(cfh, "cfh", torch.int32, dev, (N, taps))
+        KN.check(cfv, "cfv", torch.int32, dev, (N, taps))
+        if not 0 <= offset <= out.numel() - N * h * w:
+            raise ValueError(f"fir_blocks: outputs at {offset} leave `out` ({out.numel()})")
+        ptrs += [a.data_ptr() for a in (bufs, x0, y0, cfh, cfv)]
+        dims += [N, H, W, w, h, taps, offset]
+        total += N * h * w
+    if total:
+        p = (ctypes.c_void_p * len(ptrs))(*ptrs)
+        d = (ctypes.c_int * len(dims))(*dims)
+        KN.launch("vtm_fir_blocks", dev, len(groups), ctypes.addressof(p),
+                  ctypes.addressof(d), bd, out.data_ptr())
+    return out
+
+
 def fir_blocks_cuda(bufs, x0, y0, cfh, cfv, w: int, h: int, taps: int, bd: int,
                     out: torch.Tensor | None = None):
-    """csrc/refine.cu `vtm_fir_blocks`; writes into `out` when given."""
-    dev = bufs.device
-    N, H, W = bufs.shape
-    KN.check(bufs, "bufs", torch.int32, dev)
-    KN.check(x0, "x0", torch.int32, dev, (N,))
-    KN.check(y0, "y0", torch.int32, dev, (N,))
-    KN.check(cfh, "cfh", torch.int32, dev, (N, taps))
-    KN.check(cfv, "cfv", torch.int32, dev, (N, taps))
+    """csrc/refine.cu `vtm_fir_blocks`, one group; writes into `out` when
+    given."""
+    N = bufs.shape[0]
     if out is None:
-        out = torch.empty((N, h, w), dtype=torch.int32, device=dev)
-    KN.check(out, "out", torch.int32, dev, (N, h, w))
-    if N:
-        KN.launch("vtm_fir_blocks", dev, bufs.data_ptr(), N, H, W,
-                  x0.data_ptr(), y0.data_ptr(), cfh.data_ptr(), cfv.data_ptr(),
-                  w, h, taps, bd, out.data_ptr())
+        out = torch.empty((N, h, w), dtype=torch.int32, device=bufs.device)
+    KN.check(out, "out", torch.int32, bufs.device, (N, h, w))
+    fir_groups_cuda([((bufs, x0, y0, cfh, cfv), w, h, taps, 0)], bd, out.view(-1))
     return out
 
 
@@ -216,23 +241,20 @@ def fir_blocks(bufs, x0, y0, cfh, cfv, w: int, h: int, taps: int, bd: int):
 def dmvr_final_pack(l0, l1, cargs, w: int, h: int, wc: int, hc: int,
                     bd: int) -> torch.Tensor:
     """Both lists' final luma FIR and all chroma FIRs into one flat int32
-    output (one device-to-host copy).
+    output (one device-to-host copy); on the card, one launch.
 
     l0/l1: (bufs, x0, y0, cfh, cfv) luma arguments; cargs: the chroma
     arguments, list-major ([l0 comps..., l1 comps...])."""
     jobs = [(a, w, h, 8) for a in (l0, l1)] + [(a, wc, hc, 4) for a in cargs]
     bufs = l0[0]
-    on_cuda = pick(bufs, True, False)
     sizes = [a[0].shape[0] * hh * ww for a, ww, hh, _ in jobs]
     flat = torch.empty(sum(sizes), dtype=torch.int32, device=bufs.device)
-    pos = 0
-    for (a, ww, hh, taps), size in zip(jobs, sizes):
-        view = flat[pos:pos + size].view(-1, hh, ww)
-        if on_cuda:
-            fir_blocks_cuda(*a, w=ww, h=hh, taps=taps, bd=bd, out=view)
-        else:
-            view.copy_(fir_blocks_plain(*a, w=ww, h=hh, taps=taps, bd=bd))
-        pos += size
+    offsets = [sum(sizes[:i]) for i in range(len(sizes))]
+    if pick(bufs, True, False):
+        return fir_groups_cuda([j + (o,) for j, o in zip(jobs, offsets)], bd, flat)
+    for (a, ww, hh, taps), pos, size in zip(jobs, offsets, sizes):
+        flat[pos:pos + size] = fir_blocks_plain(*a, w=ww, h=hh, taps=taps,
+                                                bd=bd).view(-1)
     return flat
 
 

@@ -25,6 +25,7 @@ import time
 import numpy as np
 import torch
 
+from vtm_tpu_torch import kernels as KN
 from vtm_tpu_torch.decoder.declib import Decoder
 from vtm_tpu_torch.ops import filter_chain as FC
 from vtm_tpu_torch.ops import mc_kernel as MK
@@ -163,13 +164,23 @@ def pick_tile(n: int, width: int) -> int:
 
 def timed_runs(fn, repeats: int):
     """fn() run `repeats` times: (the last result, the host seconds of
-    each run)."""
-    secs = []
-    for _ in range(repeats):
+    each run, the kernel launches of one run as {entry point: count}).
+    The runs exist to give the seconds a spread; every run must launch what
+    the first one did, so the launches of one run stand for the stage."""
+    secs, one = [], None
+    for i in range(repeats):
+        before = KN.launch_counts()
         t0 = time.perf_counter()
         out = fn()
         secs.append(time.perf_counter() - t0)
-    return out, secs
+        after = KN.launch_counts()
+        run = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        if one is None:
+            one = run
+        elif run != one:
+            raise AssertionError(f"run {i + 1} of {repeats} launched {run}, "
+                                 f"the first {one}")
+    return out, secs, one
 
 
 def dryrun_multichip(n: int, device="cuda", stream: str = STREAM,
@@ -182,7 +193,8 @@ def dryrun_multichip(n: int, device="cuda", stream: str = STREAM,
     `tile` overrides the reference's tile choice (the rest of the lanes go
     to 'gop').  Raises unless every lane equals its picture's single-lane
     result; returns what ran, with the host seconds of each of the
-    `repeats` runs of each stage (inputs uploaded, result fetched)."""
+    `repeats` runs of each stage (inputs uploaded, result fetched) and the
+    kernel launches of one run of every stage (`launches`)."""
     if cap is None:
         key = (stream, str(device))
         if key not in _CAPTURES:
@@ -222,7 +234,15 @@ def dryrun_multichip(n: int, device="cuda", stream: str = STREAM,
     luma_in = (np.stack([a[0] for a in sel]),
                [np.stack([a[1][i] for a in sel]) for i in range(7)],
                [np.stack([a[2][i] for a in sel]) for i in range(7)], *rest)
-    out, report["luma_chain_s"] = timed_runs(lambda: fn(*luma_in).cpu().numpy(), repeats)
+    launches: dict = {}
+
+    def timed(stage, run):
+        out, report[stage], one = timed_runs(run, repeats)
+        for k, v in one.items():
+            launches[k] = launches.get(k, 0) + v
+        return out
+
+    out = timed("luma_chain_s", lambda: fn(*luma_in).cpu().numpy())
     for b, a in enumerate(sel):
         if not np.array_equal(out[b], a[5]):
             raise AssertionError(f"sharded luma filter chain mismatch "
@@ -232,8 +252,7 @@ def dryrun_multichip(n: int, device="cuda", stream: str = STREAM,
     # ---- the MC batch over every lane ----
     mc = cap["mc"]
     if mc is not None:
-        got, report["mc_s"] = timed_runs(
-            lambda: PS.sharded_mc_tiles(mesh, mc).cpu().numpy(), repeats)
+        got = timed("mc_s", lambda: PS.sharded_mc_tiles(mesh, mc).cpu().numpy())
         if not np.array_equal(got, mc["out"]):
             raise AssertionError(f"sharded MC batch mismatch (n={n}, {stream})")
         report["mc_jobs"] = int(mc["out"].shape[0])
@@ -249,12 +268,13 @@ def dryrun_multichip(n: int, device="cuda", stream: str = STREAM,
         packed, sel_f = PS.run_full_chain_gop(mesh, grp)
         return packed.cpu().numpy(), sel_f
 
-    (packed, sel_f), report["full_chain_s"] = timed_runs(full_chain, repeats)
+    packed, sel_f = timed("full_chain_s", full_chain)
     for b, c in enumerate(sel_f):
         if not np.array_equal(packed[b], c["out"]):
             raise AssertionError(f"gop-sharded full filter chain mismatch "
                                  f"(n={n}, {stream}, picture {b})")
     report["full_chain_pictures"] = len(sel_f)
+    report["launches"] = launches
     return report
 
 
