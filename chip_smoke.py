@@ -13,8 +13,9 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    kernel's registers, stack frame, spill bytes and static shared bytes
    (ptxas -v; a template instantiation with its arguments), and the
    deblocking tile kernels' launch shape (resident blocks an SM); an RMD
-   kernel that spills, or an MC, ALF-filter, FIR or RMD-reduction kernel
-   with a stack frame or spills, fails;
+   kernel that spills, or an MC, ALF-filter, ALF-classifier, luma
+   deblocking tile, FIR or RMD-reduction kernel with a stack frame or
+   spills, fails;
 3. each kernel against its plain torch version, exactly:
    - the filter kernels on the real chain inputs of POC 0 of
      testdata/ai_full_hd1080_qp37.bit (1920x1080 4:2:0 8-bit, LMCS +
@@ -45,9 +46,14 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    - the two inverse transforms (int32 MACs; int8 tensor cores) on batches
      the size of a 1920x1080 plane, every block size and kind pair, 8- and
      10-bit, each against the plain version and the two against each
-     other; the luma deblocking delta and the extended-plane SAO on the
-     eight 240-column shards (with real halos) of the 1080p picture; the
-     recon/SSE epilogue on two 1080p planes of 32x32 blocks;
+     other; the luma deblocking delta on the eight 240-column VER shards
+     (with real halos) of the 1080p picture and on its eight HOR shards
+     (the VER result transposed, edge-padded), and beside them the device
+     time of an empty kernel, of a copy of one VER and one HOR shard's
+     plane, and of a one-tile launch of the delta and of the classifier (a
+     launch's floors); the classifier on one 248-column shard as the
+     sharded chain pads it; the extended-plane SAO on the eight VER
+     shards; the recon/SSE epilogue on two 1080p planes of 32x32 blocks;
    each row of the kernel JSON carries its bound: the larger of the bytes
    its timed calls must move (inputs read once, outputs written once) over
    the card's 3.35 TB/s and their operations over the peak rate of their
@@ -82,22 +88,27 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    counts, without the decodes that check their streams, prove that the
    encoder's RMD, deblocking, SAO and ALF ran through the kernels;
 7. each kernel's bound line (device and call ms; the library call's ms
-   where one was timed), the redesign order (main-path launches x (device
-   ms - bound ms) per launch of the timed calls), one JSON line of
-   per-kernel results, then the device line, last.
+   where one was timed), the redesign order (each main path's launches x
+   (device ms - bound ms) per launch of the timed calls at that path's
+   shape: 1080p for the decode and encode paths, a shard for the
+   multi-device path, the other where only one was timed), one JSON line
+   of per-kernel results, then the device line, last.
 
     python3 chip_smoke.py --versus DIR
 
 instead times this checkout's kernels against another commit's build of
 the same sources, in one process on one card, in turns (other, this, this,
 other), in device ms, each result equal to this checkout's.  DIR holds
-that commit's sources (e.g. from `git show 3762d21:vtm_tpu_torch/csrc/
+that commit's sources (e.g. from `git show c51c14f:vtm_tpu_torch/csrc/
 deblock.cu`), built into DIR/libversus_*.so with the entry points renamed:
 rmd.cu, satd.cuh and common.cuh time the three RMD kernels class by class
-on the 1080p source; deblock.cu and common.cuh time the luma and chroma
-deblocking on POC 0 of the 1080p stream, VER and HOR; mc.cu, fir.cuh and
-common.cuh time the MC tiles on phase 3's 1080p-sized seeded batches;
-alf.cu and common.cuh time the ALF filter on POC 0's Y, Cb and Cr;
+on the 1080p source; deblock.cu (165e438 or later) and common.cuh time the
+luma and chroma
+deblocking on POC 0 of the 1080p stream, VER and HOR, and the luma delta
+on its eight VER and eight HOR shards; mc.cu, fir.cuh and common.cuh time
+the MC tiles on phase 3's 1080p-sized seeded batches; alf.cu and
+common.cuh time the classifier on POC 0's luma and the ALF filter on its
+Y, Cb and Cr;
 refine.cu, fir.cuh and common.cuh time the FIR on phase 3's 1080p-sized
 luma blocks and six-group dmvr_final_pack call.
 """
@@ -178,7 +189,7 @@ NO_LOCAL_MEMORY = {
     **dict.fromkeys(("rmd_angular_kernel", "rmd_mip_kernel"),
                     ("spill_stores", "spill_loads")),
     **dict.fromkeys(("mc_tiles_kernel", "alf_filter_kernel", "fir_blocks_kernel",
-                     "rmd_reduce_kernel"),
+                     "rmd_reduce_kernel", "alf_classify_kernel", "luma_tile_kernel"),
                     ("spill_stores", "spill_loads", "stack_frame"))}
 # runs of each sharded stage whose host seconds are compared (median)
 REPEATS = 7
@@ -376,19 +387,22 @@ class KernelCheck:
         self.last = None  # the last timed comparison: ms, call_ms, plain_ms, bytes, ops
         self.rows = {k: dict(max_abs_err=0, ms=0.0, call_ms=0.0, plain_ms=0.0,
                              library_ms=None, bytes=0, ops=0.0, peak=INT32_OPS_PER_S,
-                             timed=0, launches=0, paced=[])
+                             timed=0, launches=0, paced=[], shapes={})
                      for k in KERNEL_INFO}
 
     def compare(self, kernel: str, label: str, cuda_fn, plain_fn,
                 timed: bool = False, iters: int = 10, ins=(), ops: float = 0,
-                peak: float = INT32_OPS_PER_S, quiet: bool = False, library=None):
+                peak: float = INT32_OPS_PER_S, quiet: bool = False, library=None,
+                shape: str = "picture"):
         """Kernel against plain version; with `timed`, both timed, and the
         bound counted: the bytes of `ins` and of the result, and `ops`
-        operations at `peak` per second.  `library`: (fn, agree) of PyTorch
-        calls that compute the same function, never used by the port: with
-        `timed`, fn() is held to the kernel's result (agree(got, fn()) must
-        be true) and then timed as the row's library_ms.  `quiet` prints
-        nothing unless the two disagree."""
+        operations at `peak` per second, also per `shape` ("picture": the
+        single-device paths' 1080p shapes; "shard": the multi-device
+        path's).  `library`: (fn, agree) of PyTorch calls that compute the
+        same function, never used by the port: with `timed`, fn() is held to
+        the kernel's result (agree(got, fn()) must be true) and then timed
+        as the row's library_ms.  `quiet` prints nothing unless the two
+        disagree."""
         from vtm_tpu_torch import kernels as KN
 
         torch = self.torch
@@ -415,6 +429,9 @@ class KernelCheck:
             row["peak"] = peak
             row["timed"] += 1
             row["launches"] += per_call
+            by = row["shapes"].setdefault(shape, [0.0, 0, 0.0, 0])  # ms, bytes, ops, launches
+            for k, v in enumerate((ms, nbytes(ins, got), ops, per_call)):
+                by[k] += v
             if paced:
                 row["paced"].append(f"{label}: {paced}")
             self.last = dict(ms=ms, call_ms=call, plain_ms=pms,
@@ -444,6 +461,17 @@ class KernelCheck:
         t_bytes = row["bytes"] / BYTES_PER_S * 1e3
         t_ops = row["ops"] / row["peak"] * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    def per_launch(self, kernel: str, shape: str) -> tuple[float, float, str]:
+        """(device ms, bound ms) per launch of the timed calls at `shape`, or
+        of those at the other shape where none was timed at this one, and
+        the shape they were taken at."""
+        row = self.rows[kernel]
+        if shape not in row["shapes"]:
+            shape = next(iter(row["shapes"]))
+        ms, nb, ops, n = row["shapes"][shape]
+        bound = max(nb / BYTES_PER_S, ops / row["peak"]) * 1e3
+        return ms / n, bound / n, shape
 
 
 def check_kernels(torch, chk: KernelCheck, y, cb, cr, lut, dbv, dbh, sao, alf,
@@ -1006,11 +1034,13 @@ def versus_mc(torch, KN, other: str) -> None:
     versus_sums(sums, "luma + chroma")
 
 
-def alf_filter_cases(torch, pic: dict, dev):
-    """The vtm_alf_filter calls of a captured picture's chain, as (label,
-    src_pad, coef, clip, o_rows, near_vb, taps), and the bit depth: the
-    chain up to SAO on the card (chain_body with ALF off), then the luma
-    classes and the per-CTU coefficient gather, as phase 3 takes them."""
+def alf_cases(torch, pic: dict, dev):
+    """The vtm_alf_classify call of a captured picture's chain, as (y_pad,
+    its seven row tables), its vtm_alf_filter calls, as (label, src_pad,
+    coef, clip, o_rows, near_vb, taps) of Y, Cb and Cr, and the bit depth:
+    the chain up to SAO on the card (chain_body with ALF off), then the
+    luma classes and the per-CTU coefficient gather, as phase 3 takes
+    them.  ALF must be on in every component."""
     from vtm_tpu_torch.ops import alf_kernel as AK
     from vtm_tpu_torch.ops import edge_pad
     from vtm_tpu_torch.ops import filter_chain as FC
@@ -1018,6 +1048,8 @@ def alf_filter_cases(torch, pic: dict, dev):
     planes, lmcs_lut, dmaps, sao_maps, alf_tables, bd, sx, sy = (pic[k] for k in (
         "planes", "lmcs_lut", "dmaps", "sao_maps", "alf_tables", "bd", "sx", "sy"))
     fl = FC.chain_flags(len(planes), lmcs_lut, dmaps, sao_maps, alf_tables)
+    if not all(fl[10:13]):
+        raise AssertionError("the picture's ALF is off in a component")
     comps = [FC.to_device(p, dev) for p in planes]
     dbv, dbh, sao, alf = FC.maps_to_torch(dmaps, sao_maps, alf_tables, dev)
     lut = FC.to_device(lmcs_lut, dev) if lmcs_lut is not None else None
@@ -1025,36 +1057,41 @@ def alf_filter_cases(torch, pic: dict, dev):
     y, cb, cr = (p.view_as(c) for p, c in zip(flat.split([c.numel() for c in comps]), comps))
     (cperm, lperm, ctu_of, l_orows, l_near, y_i, yd_i, yu_i, yu2_i, df, dl, mult,
      cb_coef, cb_clip, cr_coef, cr_clip, c_orows, c_near) = alf[:18]
-    cases = []
-    if fl[10]:
-        y_pad = edge_pad(y, AK.PAD, AK.PAD)
-        cls, tr = AK.classify_picture_cuda(y_pad, y_i, yd_i, yu_i, yu2_i, df, dl, mult,
-                                           bit_depth=bd)
-        gather = (ctu_of.long(), cls.long(), tr.long())
-        cases.append(("luma", y_pad, cperm[gather], lperm[gather], l_orows, l_near,
-                      AK.LUMA_TAPS))
-    for on, label, c, co, cl in ((fl[11], "Cb", cb, cb_coef, cb_clip),
-                                 (fl[12], "Cr", cr, cr_coef, cr_clip)):
-        if on:
-            cases.append((label, edge_pad(c, AK.PAD, AK.PAD), co, cl, c_orows, c_near,
-                          AK.CHROMA_TAPS))
-    return cases, bd
+    y_pad = edge_pad(y, AK.PAD, AK.PAD)
+    rows = (y_i, yd_i, yu_i, yu2_i, df, dl, mult)
+    cls, tr = AK.classify_picture_cuda(y_pad, *rows, bit_depth=bd)
+    gather = (ctu_of.long(), cls.long(), tr.long())
+    cases = [("luma", y_pad, cperm[gather], lperm[gather], l_orows, l_near, AK.LUMA_TAPS)]
+    for label, c, co, cl in (("Cb", cb, cb_coef, cb_clip), ("Cr", cr, cr_coef, cr_clip)):
+        cases.append((label, edge_pad(c, AK.PAD, AK.PAD), co, cl, c_orows, c_near,
+                      AK.CHROMA_TAPS))
+    return (y_pad, rows), cases, bd
 
 
 def versus_alf(torch, KN, other: str) -> None:
-    """vtm_alf_filter against the build of another alf.cu (with its
-    common.cuh) in `other`, on the luma, Cb and Cr filter inputs of POC 0
-    of the 1080p stream, in turns."""
+    """vtm_alf_classify and vtm_alf_filter against the build of another
+    alf.cu (with its common.cuh) in `other`, on the classifier's input and
+    the luma, Cb and Cr filter inputs of POC 0 of the 1080p stream, in
+    turns."""
     from vtm_tpu_torch.ops import alf_kernel as AK
     from vtm_tpu_torch.parallel import multichip as MCH
 
     names = ("vtm_alf_classify", "vtm_alf_filter", "vtm_ccalf_filter")
-    _, (_, fn, _) = other_entries(KN, other, "alf.cu", names)
+    _, (cls_fn, fn, _) = other_entries(KN, other, "alf.cu", names)
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    cases, bd = alf_filter_cases(torch, MCH.capture_decode(HD_STREAM, "cuda")["pics"][0], dev)
-    if len(cases) != 3:
-        raise AssertionError(f"POC 0 of {HD_STREAM}: ALF is off in a component")
+    (y_pad, rows), cases, bd = alf_cases(
+        torch, MCH.capture_decode(HD_STREAM, "cuda")["pics"][0], dev)
+    nr = rows[0].shape[0]
+    H4, W4 = (nr - 2) // 2, (y_pad.shape[1] - 2 * AK.PAD) // 4
+    theirs = tuple(torch.full((H4, W4), -1, dtype=torch.int32, device=dev) for _ in range(2))
+    versus_row(
+        torch, other, "vtm_alf_classify", "POC 0 luma",
+        lambda: cls_fn(y_pad.data_ptr(), *y_pad.shape, *(r.data_ptr() for r in rows[:4]), nr,
+                       *(r.data_ptr() for r in rows[4:]), H4, W4, bd, theirs[0].data_ptr(),
+                       theirs[1].data_ptr(), stream),
+        lambda: AK.classify_picture_cuda(y_pad, *rows, bit_depth=bd), theirs,
+        (y_pad, rows), {})
     sums = {}
     for label, pad, coef, clip, orows, near, taps in cases:
         H, W = orows.shape[0], coef.shape[1] * 4
@@ -1207,24 +1244,19 @@ def versus_deblock(torch, KN, other: str) -> None:
     """vtm_deblock_luma_ver and vtm_deblock_chroma_ver against the build of
     another deblock.cu in `other` (its entry points renamed), on the chain
     inputs of POC 0 of the 1080p stream, VER then HOR (HOR filters VER's
-    output, as the chain does), in turns (other, this, this, other), in
-    device ms.  The other build's chroma entry takes a plane a launch (the
-    signature of commit 3762d21): its Cb and Cr launches are timed as one
-    call.  Each output must equal the other build's; each row prints its
-    share of the bytes bound for both builds, and the launch shape of this
-    build's tile kernels."""
-    import ctypes
-
+    output, as the chain does), then vtm_deblock_luma_ver_delta on its
+    eight VER and eight HOR shards (delta_shards), in turns (other, this,
+    this, other), in device ms.  The other deblock.cu must be commit 165e438
+    or later, whose entry points take this build's arguments (Cb and Cr in
+    one chroma launch).  Each output must equal the other build's; each row
+    prints its share of the bytes bound for both builds, and the launch
+    shape of this build's tile kernels."""
     from vtm_tpu_torch.ops import deblock_kernel as DK
     from vtm_tpu_torch.ops import filter_chain as FC
     from vtm_tpu_torch.parallel import multichip as MCH
 
     lib, _ = other_entries(KN, other, "deblock.cu", (
         "vtm_deblock_luma_ver", "vtm_deblock_chroma_ver", "vtm_deblock_luma_ver_delta"))
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # the chroma entry of 3762d21 took one plane a call
-    lib.versus_deblock_chroma_ver.argtypes = [P, P, I, I, L, L, *[P] * 7, L, L,
-                                              I, I, I, I, I, P]
     for name, cfg in DK.kernel_config().items():
         print(f"  launch shape {name}: {cfg}", flush=True)
 
@@ -1257,12 +1289,11 @@ def versus_deblock(torch, KN, other: str) -> None:
                 *(m.data_ptr() for m in maps[0:7]), *mv.stride(), bd, stream)
 
         def other_chroma():
-            return max(lib.versus_deblock_chroma_ver(
-                p.data_ptr(), o.data_ptr(), *pv.shape, *pv.stride(),
-                *(m.data_ptr() for m in cm), *(m.data_ptr() for m in maps[13:17]),
+            return lib.versus_deblock_chroma_ver(
+                cb.data_ptr(), o_cb.data_ptr(), cr.data_ptr(), o_cr.data_ptr(),
+                *pv.shape, *pv.stride(), *(m.data_ptr() for m in maps[7:17]),
                 *cv.stride(), pv.shape[0] // loop_len, pv.shape[1] // 4, loop_len,
                 dec_line, bd, stream)
-                for p, o, cm in ((cb, o_cb, maps[7:10]), (cr, o_cr, maps[10:13])))
 
         rows = (("vtm_deblock_luma_ver", other_luma,
                  lambda: DK.deblock_dir_cuda(y, cb, cr, *maps, **lk)[0:1], (o_y,),
@@ -1275,6 +1306,19 @@ def versus_deblock(torch, KN, other: str) -> None:
                              this_fn, theirs, ins, sums))
             for name, other_fn, this_fn, theirs, ins in rows)
     versus_sums(sums, "VER + HOR")
+    # the delta form on the multi-device path's shards
+    shards, _, bd = delta_shards(torch, pic, dev)
+    for d in ("VER", "HOR"):
+        dsums = {}
+        for label, pad, m in (c for c in shards if c[0].startswith(d)):
+            theirs = torch.full_like(pad, -1)
+            versus_row(
+                torch, other, "vtm_deblock_luma_ver_delta", label,
+                lambda: lib.versus_deblock_luma_ver_delta(
+                    pad.data_ptr(), theirs.data_ptr(), *pad.shape,
+                    *(t.data_ptr() for t in m), bd, stream),
+                lambda: DK.luma_ver_delta_cuda(pad, *m, bd), theirs, (pad, m), dsums)
+        versus_sums(dsums, f"8 {d} shards")
 
 
 def check_transforms(torch, chk: KernelCheck, dev, seed: int = 17):
@@ -1321,13 +1365,54 @@ def check_transforms(torch, chk: KernelCheck, dev, seed: int = 17):
           "vtm_inv_transform_s8 == plain on every one", flush=True)
 
 
+def delta_shards(torch, pic: dict, dev, lanes: int = 8):
+    """The vtm_deblock_luma_ver_delta calls of the sharded luma chain
+    (pic_shard.make_sharded_luma_filters) over `lanes` width shards of a
+    captured picture, as (label, pad, maps): the VER shards, each extended
+    by its neighbours' 8 columns, then the HOR shards, the VER result
+    (every lane's returned halo deltas added; from the plain deltas)
+    transposed and edge-padded by 8 columns; also the VER-deblocked shards
+    and the bit depth."""
+    from vtm_tpu_torch.ops import deblock_kernel as DK
+    from vtm_tpu_torch.ops import edge_pad
+    from vtm_tpu_torch.parallel import multichip as MCH
+    from vtm_tpu_torch.parallel import pic_shard as PS
+
+    x, dv, dh, *_ = MCH.luma_chain_args(pic)
+    bd = int(pic["bd"])
+    devs = [dev] * lanes
+    xs = PS._split_cols(PS._t(x), lanes, devs)
+    dvs = zip(*(PS._split_cols(PS._t(m), lanes, devs) for m in dv))
+    ver = [(f"VER shard {i} of {lanes}", e, m)
+           for i, (e, m) in enumerate(zip(PS._halo_cols(xs, 8), dvs))]
+    xs = PS.add_halo_deltas(xs, [DK.luma_ver_delta_plain(e, *m, bd) for _, e, m in ver], 8)
+    dhs = zip(*(PS._split_cols(PS._t(m), lanes, devs, axis=0) for m in dh))
+    hor = [(f"HOR shard {i} of {lanes}", edge_pad(v.T, 0, 8), m)
+           for i, (v, m) in enumerate(zip(xs, dhs))]
+    return ver + hor, xs, bd
+
+
+def launch_floor(torch, name: str, label: str, fn) -> float:
+    """Device ms of one launch: of a kernel on one tile, the floor any of
+    its launches pays, whatever its size; of a plain copy of a shard, the
+    floor of any launch that moves the shard's plane in and out."""
+    ms, paced = device_ms(torch, fn)
+    if paced:
+        raise AssertionError(f"launch floor {name} {paced}")
+    print(f"launch floor {name}: {label}, {ms:.6f} ms device", flush=True)
+    return ms
+
+
 def check_shard_entries(torch, chk: KernelCheck, pic: dict, dev, lanes: int = 8):
-    """The luma deblocking delta and the extended-plane SAO on the `lanes`
-    width shards of a captured 1080p picture, each with its neighbours'
-    real halo (edge copies at the picture border), and the recon/SSE
-    epilogue on two 1080p planes of 32x32 blocks; timed."""
+    """The luma deblocking delta on the `lanes` VER and HOR width shards of
+    a captured 1080p picture (delta_shards), the classifier on one shard as
+    the sharded chain pads it, the extended-plane SAO on the VER shards,
+    each with its neighbours' real halo (edge copies at the picture
+    border), and the recon/SSE epilogue on two 1080p planes of 32x32
+    blocks; timed, and the delta's and the classifier's launch floors."""
     import numpy as np
 
+    from vtm_tpu_torch.ops import alf_kernel as AK
     from vtm_tpu_torch.ops import deblock_kernel as DK
     from vtm_tpu_torch.ops import edge_pad
     from vtm_tpu_torch.ops import sao_kernel as SK
@@ -1335,16 +1420,42 @@ def check_shard_entries(torch, chk: KernelCheck, pic: dict, dev, lanes: int = 8)
     from vtm_tpu_torch.parallel import multichip as MCH
     from vtm_tpu_torch.parallel import pic_shard as PS
 
-    x, dv, _, sao, _, _ = MCH.luma_chain_args(pic)
-    bd = int(pic["bd"])
-    xs = PS._split_cols(PS._t(x), lanes, [dev] * lanes)
-    dvs = list(zip(*(PS._split_cols(PS._t(m), lanes, [dev] * lanes) for m in dv)))
-    for i, (e, maps) in enumerate(zip(PS._halo_cols(xs, 8), dvs)):
-        chk.compare("vtm_deblock_luma_ver_delta", f"1080p POC 0 shard {i} of {lanes}",
+    x, _, _, sao, alf, _ = MCH.luma_chain_args(pic)
+    shards, ver_xs, bd = delta_shards(torch, pic, dev, lanes)
+    for label, e, maps in shards:
+        chk.compare("vtm_deblock_luma_ver_delta", f"1080p POC 0 {label}",
                     lambda: DK.luma_ver_delta_cuda(e, *maps, bd),
                     lambda: DK.luma_ver_delta_plain(e, *maps, bd), timed=True,
-                    ins=(e, maps), ops=10 * e.numel())
+                    ins=(e, maps), ops=10 * e.numel(), shape="shard")
+    # floors: an empty kernel, a copy of a VER and of a HOR shard's plane,
+    # and one tile of the delta (4 x 128 samples)
+    launch_floor(torch, "empty kernel", "torch.cuda._sleep(0)", lambda: torch.cuda._sleep(0))
+    for label, e, _ in (shards[0], shards[lanes]):
+        dst = torch.empty_like(e)
+        launch_floor(torch, "shard copy", f"torch copy_ of {label}'s plane "
+                     f"{tuple(e.shape)} int32, {2 * e.numel() * 4} bytes",
+                     lambda: dst.copy_(e))
+    e, maps = shards[0][1:]
+    tile = (e[:4, :128].contiguous(), [m[:1, :28].contiguous() for m in maps])
+    launch_floor(torch, "vtm_deblock_luma_ver_delta", "one 4 x 128 tile of VER shard 0",
+                 lambda: DK.luma_ver_delta_cuda(tile[0], *tile[1], bd))
+    if alf is not None:
+        # shard 1 after VER, with 4-column halos and 4 edge rows: the
+        # classifier's input on the sharded chain (there after HOR and SAO)
+        rows = [PS._t(r).to(dev) for r in alf[5:12]]
+        p4 = edge_pad(PS._halo_cols(ver_xs, 4)[1], AK.PAD, 0)
+        chk.compare("vtm_alf_classify",
+                    f"1080p POC 0 shard 1 of {lanes}, {p4.shape[1]} columns",
+                    lambda: AK.classify_picture_cuda(p4, *rows, bit_depth=bd),
+                    lambda: AK.classify_picture_plain(p4, *rows, bit_depth=bd), timed=True,
+                    ins=(p4, rows), ops=12 * (p4.shape[0] - 8) * (p4.shape[1] - 8),
+                    shape="shard")
+        tile = p4[:40, :136].contiguous()
+        small = [r[:18] for r in rows[:4]] + [r[:8] for r in rows[4:]]
+        launch_floor(torch, "vtm_alf_classify", "one tile, 8 x 32 4x4 blocks",
+                     lambda: AK.classify_picture_cuda(tile, *small, bit_depth=bd))
     if sao is not None:
+        xs = PS._split_cols(PS._t(x), lanes, [dev] * lanes)
         parts = [PS._split_cols(PS._t(m), lanes, [dev] * lanes) for m in (sao[0], sao[1], sao[3])]
         offs = PS._t(sao[2]).to(dev)
         for i, e in enumerate(PS._halo_cols(xs, 1)):
@@ -1353,7 +1464,7 @@ def check_shard_entries(torch, chk: KernelCheck, pic: dict, dev, lanes: int = 8)
             chk.compare("vtm_sao_apply_ext", f"1080p POC 0 shard {i} of {lanes}",
                         lambda: SK.sao_apply_ext_cuda(*args),
                         lambda: SK.sao_apply_ext_plain(*args), timed=True,
-                        ins=args[:5], ops=8 * parts[0][i].numel())
+                        ins=args[:5], ops=8 * parts[0][i].numel(), shape="shard")
     rng = np.random.default_rng(23)
     shape = (2, 2040, 32, 32)
     resid, pred, orig = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (
@@ -1783,16 +1894,31 @@ def main() -> int:
                             bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=row["library_ms"]))
     # what a redesign of each kernel could save on the main paths at most:
-    # main-path launches x (device ms - bound ms) per launch of the timed calls
+    # each path's launches x (device ms - bound ms) per launch of the timed
+    # calls at that path's shape (the decode and encode paths: 1080p; the
+    # multi-device path: shards), or at the other shape where the kernel was
+    # timed at one only
     order = []
     for k in kernels:
-        n = chk.rows[k["name"]]["launches"]
-        if n:
-            per, bound = k["ms"] / n, k["bound_ms"] / n
-            order.append((k["launches"] * (per - bound), k["name"], per, bound))
-    print("redesign order, main-path launches x (device ms - bound ms) per launch: "
-          + ", ".join(f"{name} {gap:.6f} ms ({per:.6f} ms a launch, bound {bound:.6f} ms)"
-                      for gap, name, per, bound in sorted(order, reverse=True)), flush=True)
+        name = k["name"]
+        if not chk.rows[name]["launches"]:
+            continue
+        by_used = {}  # the shape timed -> launches weighed at it
+        for shape, n in (("picture", dec_counts[name] + enc_counts[name]),
+                         ("shard", mesh_counts[name])):
+            if n:
+                used = chk.per_launch(name, shape)[2]
+                by_used[used] = by_used.get(used, 0) + n
+        gap, parts = 0.0, []
+        for used, n in by_used.items():
+            per, bound, _ = chk.per_launch(name, used)
+            gap += n * (per - bound)
+            parts.append(f"{n} x ({per:.6f} - {bound:.6f}) ms at {used} shape")
+        order.append((gap, name, parts))
+    print("redesign order, main-path launches x (device ms - bound ms) per launch at "
+          "the path's shape: " + ", ".join(f"{name} {gap:.6f} ms ({' + '.join(parts)})"
+                                           for gap, name, parts in sorted(order, reverse=True)),
+          flush=True)
     torch.cuda.synchronize()
     print(card_line())
     print(json.dumps({"kernels": kernels}))

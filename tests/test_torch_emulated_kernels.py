@@ -15,9 +15,11 @@ on planes of several tiles each way with ragged right and bottom tiles;
 the MC tile groups (plane pointers by value, windows and passes in shared
 memory), the FIR job groups (up to six a launch, spans staged in shared
 memory from any alignment), the RMD reduction's warp reductions (crafted
-ties) and the ALF filter tiles (a template per component, halo rows and
-columns, out-of-halo row offsets read from the plane) through their
-wrappers.  Tolerance 0.
+ties), the ALF filter tiles (a template per component, halo rows and
+columns, out-of-halo row offsets read from the plane), the ALF classifier's
+tiles (a staged band of rows, gradients once, out-of-band row indices, the
+int32 wrap) and the luma deblocking delta tiles (every element written, halo
+deltas) through their wrappers.  Tolerance 0.
 """
 
 import ctypes
@@ -224,17 +226,69 @@ def test_deblock_chroma_ver(emu_launch, loop_len, dec_line, aligned):
     assert not torch.equal(want, plane)
 
 
+def _strong_end_edges(rng, pad: np.ndarray, maps: list, bd: int) -> None:
+    """The first and last edge of map rows 0-1 (extended columns 8 and
+    Wp - 12) made long-filter edges (max_p, max_q 7, a step of 40 between
+    flat sides), so that their deltas reach into the 8-column halos; the
+    edges within 16 samples of the last one turned off, so that no two
+    edges write one sample."""
+    scale = 1 << (bd - 8)
+    wp = pad.shape[1]
+    w4 = (wp - 16) // 4
+    base = int(rng.integers(100, 150)) * scale
+    for x in (8, wp - 12):
+        cols = np.arange(x - 8, x + 8)
+        pad[0:8, x - 8:x + 8] = base + 40 * scale * (cols >= x)
+    act, tc, beta, max_p, max_q, no_p, no_q = maps
+    act[0:2, w4 - 4:w4 - 1] = False
+    for c in (0, w4 - 1):
+        act[0:2, c], tc[0:2, c], beta[0:2, c] = True, 25 * scale, 88 * scale
+        max_p[0:2, c], max_q[0:2, c], no_p[0:2, c], no_q[0:2, c] = 7, 7, False, False
+
+
+def _extents_disjoint(maps: list) -> bool:
+    """Whether the samples the active luma edges of each line may write
+    (x - max_p .. x + max_q - 1 for the edge at x = 4 c) are disjoint: the
+    kernels' precondition (deblock.cu), which VVC's max_p / max_q rules
+    guarantee."""
+    act, max_p, max_q = (np.asarray(maps[i], dtype=np.int64) for i in (0, 3, 4))
+    x = 4 * np.arange(act.shape[1])
+    end = np.where(act > 0, x + max_q, -1 << 20)[:, :, None]   # past the last sample
+    start = np.where(act > 0, x - max_p, 1 << 20)[:, None, :]
+    later = x[:, None] < x[None, :]
+    return not (later & (end > start)).any()
+
+
 @pytest.mark.parametrize("bd", [8, 10])
-def test_deblock_luma_ver_delta(emu_launch, bd):
+def test_deblock_luma_ver_delta(lib, emu_launch, bd):
     """The delta form over an 8-column-extended shard, against
-    luma_ver_delta_plain."""
-    rng = np.random.default_rng(40 + bd)
-    pad = torch.from_numpy(T.plane(rng, DB_H, DB_W + 16, bd))
-    maps = [torch.from_numpy(m) for m in T.deblock_maps(rng, DB_H, DB_W, bd, False)[:7]]
-    got = DK.luma_ver_delta_cuda(pad, *maps, bd)
-    want = DK.luma_ver_delta_plain(pad, *maps, bd)
-    np.testing.assert_array_equal(got.numpy(), want.numpy())
-    assert want.any()
+    luma_ver_delta_plain: through the wrapper, and through the C entry into
+    a buffer filled with a sentinel (one launch must write every element,
+    halo columns and unfiltered samples included: no memset precedes it);
+    long filters on the first and last edge put deltas into both halos;
+    widths of 1 + 11/16 tiles and of a part of one (the tile is 128
+    columns), and a plane 4 bytes off a 16-byte boundary.  The maps meet the
+    kernels' precondition, disjoint filter extents."""
+    for h, w, aligned in ((DB_H, DB_W, True), (DB_H, DB_W, False), (40, 84, False)):
+        rng = np.random.default_rng(40 + bd + w)
+        raw = T.plane(rng, h, w + 16, bd)
+        maps = list(T.deblock_maps(rng, h, w, bd, False)[:7])
+        _strong_end_edges(rng, raw, maps, bd)
+        assert _extents_disjoint(maps)
+        bad = [m.copy() for m in maps]  # two long filters 4 samples apart overlap
+        bad[0][0, 0:2], bad[4][0, 0], bad[3][0, 1] = True, 7, 7
+        assert not _extents_disjoint(bad)
+        pad = _misaligned(raw, aligned)
+        maps = [torch.from_numpy(m) for m in maps]
+        want = DK.luma_ver_delta_plain(pad, *maps, bd)
+        assert want[:, :8].any() and want[:, -8:].any(), "no halo deltas"
+        got = DK.luma_ver_delta_cuda(pad, *maps, bd)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+        out = torch.full_like(want, -12345)
+        assert lib.vtm_deblock_luma_ver_delta(pad.data_ptr(), out.data_ptr(), h, w + 16,
+                                              *(m.data_ptr() for m in maps), bd,
+                                              None) == 0
+        np.testing.assert_array_equal(out.numpy(), want.numpy())
 
 
 def _misaligned(a: np.ndarray, aligned: bool = False) -> torch.Tensor:
@@ -322,6 +376,70 @@ def test_alf_filter(emu_launch, luma, bd, aligned):
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     np.testing.assert_array_equal(want.numpy()[ctu:2 * ctu], src[ctu:2 * ctu])
     assert near.any() and not np.array_equal(want.numpy(), src)
+
+
+# the classifier's tiles are 32 x 8 4x4 blocks (128 columns x 32 rows): a
+# 248-column shard padded as pic_shard pads it (4-column halos, 4 edge rows
+# above and below) is one full and one ragged tile across, 72 rows three
+# tile rows, the last ragged
+CLS_H, CLS_W = 72, 240
+
+
+def _classify_rows(h: int, ctu: int):
+    """The classification row tables of a picture of h rows with CTUs of
+    `ctu` rows (the luma virtual boundary 4 rows above each CTU's end)."""
+    return [torch.from_numpy(np.asarray(a))
+            for a in AK.classify_row_indices(h, ctu, ctu - 4)
+            + AK.classify_block_rows(h, ctu, ctu - 4)]
+
+
+@pytest.mark.parametrize("bd,ctu,aligned", [(8, 32, True), (10, 64, False),
+                                            (10, 16, True)])
+def test_alf_classify(emu_launch, bd, ctu, aligned):
+    """vtm_alf_classify through classify_picture_cuda against
+    classify_picture_plain on a 248-column shard: VB rows at CTU heights
+    16, 32 and 64, four row-table entries outside the band a tile stages
+    (read from the plane, one clamped below 0), one past the plane's end and
+    two in the band but far from their rows' own (in the part of the band
+    staged last), and with aligned=False the plane 4 bytes off a 16-byte
+    boundary."""
+    rng = np.random.default_rng(110 + bd + ctu)
+    src = T.plane(rng, CLS_H, CLS_W + 8, bd)
+    pad = _misaligned(np.pad(src, ((AK.PAD, AK.PAD), (0, 0)), mode="edge"), aligned)
+    rows = _classify_rows(CLS_H, ctu)
+    y_i, yd_i, yu_i, yu2_i = rows[:4]
+    yd_i[3], yu_i[9], yu2_i[20], y_i[30] = 50, 60, -7, 3
+    y_i[-1] = 10 ** 5
+    yu2_i[2], yd_i[19] = 24, 63  # in the band, far from the rows' own
+    got = AK.classify_picture_cuda(pad, *rows, bit_depth=bd)
+    want = AK.classify_picture_plain(pad, *rows, bit_depth=bd)
+    assert want[0].shape == (CLS_H // 4, CLS_W // 4)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    assert rows[4].any() and rows[5].any() and len(set(want[0].flatten().tolist())) > 3
+
+
+def test_alf_classify_int32_wrap(emu_launch, monkeypatch):
+    """A 10-bit plane whose left half repeats a 4x4 pattern of 0 and 1023:
+    there a block's diagonal sum times its lesser horizontal or vertical
+    sum passes 2^31, so the direction test's int32 product wraps; the
+    kernel classifies as the plain version (and jax) does, and the plain
+    version without the wrap classifies those blocks otherwise."""
+    rng = np.random.default_rng(120)
+    h, w = 40, 120
+    tile = np.array([[1023, 0, 1023, 1023], [1023, 0, 1023, 0],
+                     [1023, 0, 1023, 0], [1023, 0, 1023, 1023]])
+    pad = T.plane(rng, h + 8, w + 8, 10)
+    pad[:, :64] = np.tile(tile, ((h + 8) // 4, 16))
+    pad = torch.from_numpy(pad)
+    rows = _classify_rows(h, 64)
+    got = AK.classify_picture_cuda(pad, *rows, bit_depth=10)
+    want = AK.classify_picture_plain(pad, *rows, bit_depth=10)
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w_.numpy())
+    monkeypatch.setattr(AK, "mul32", lambda a, b: a.long() * b.long())
+    unwrapped = AK.classify_picture_plain(pad, *rows, bit_depth=10)
+    assert not torch.equal(unwrapped[0], want[0])
 
 
 def _reduce_rows(rng, n_mip: int) -> np.ndarray:

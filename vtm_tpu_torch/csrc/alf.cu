@@ -2,7 +2,7 @@
 // (luma 12 taps, chroma 6 taps) and the cross-component filter.
 //
 // Replaces, in vtm_tpu/ops/alf_kernel.py (driven by alf_all):
-//   alf_classify_kernel  <- classify_picture  (one thread per 4x4 block)
+//   alf_classify_kernel  <- classify_picture  (a tile a block, see below)
 //   alf_filter_kernel    <- alf_filter        (a tile a block, see below)
 //   ccalf_kernel         <- ccalf_filter      (one thread per chroma sample)
 // The virtual-boundary rules arrive as per-row tables built on the host
@@ -13,9 +13,25 @@
 // Bound on the H100: memory.  The filter moves about 4 bytes in and 4 out
 // per sample from device memory, plus 2 x ntaps x 4 bytes of coefficient
 // and clip map per 4x4 block (6 bytes per luma sample, 3 per chroma
-// sample); classification reads the luma plane once per 4x4 block and
-// writes 8 bytes per block.  The int32 arithmetic (at most 12 multiply-adds
-// a sample) is far below the card's integer rate.
+// sample); classification reads the luma plane once and writes 8 bytes per
+// 4x4 block.  The int32 arithmetic (at most 12 multiply-adds a sample) is
+// far below the card's integer rate.
+//
+// Classification's design reads each sample and computes each gradient
+// once: a block of 256 threads takes a tile of 32 x 8 4x4 blocks.  Its
+// laplacian rows' row tables (y, yd, yu, yu2) all index one band of the
+// padded plane, 38 rows of 136 columns, which the block stages in shared
+// memory with 16-byte loads (scalar ones at a ragged or unaligned edge); a
+// table entry outside the band (only a malformed table has one) is read
+// from the plane itself, clamped.  A thread then computes the four
+// gradients (V, H, D0, D1) of two neighbouring even positions of a row
+// from the band as 16-byte vectors and keeps their sums in shared memory;
+// a 4x4 block's window is two such pairs of each of its 2-4 rows, so each
+// thread sums one block's window, takes the class and transpose decision
+// (the two lookup tables are immediates, not constant memory), and the
+// tile's maps go out as coalesced rows.  A 1080p plane is one wave of 510
+// blocks, so every block loads, then computes: the compute does not hide
+// behind the loads (PERF.md: what was tried).
 //
 // The filter's design moves each of those bytes once: one instantiation per
 // component (alf_filter_kernel<LUMA>: the taps from a constexpr table, the
@@ -31,42 +47,137 @@
 
 #include "common.cuh"
 
-__constant__ int kActTh[16] = {0, 1, 2, 2, 2, 2, 2, 3, 3, 3, 3, 3, 3, 3, 3, 4};
-__constant__ int kTransposeTable[8] = {0, 1, 0, 2, 2, 3, 1, 3};
+// The activity-class table {0, 1, 2, 2, 2, 2, 2, 3, 3, 3, 3, 3, 3, 3, 3, 4} (3
+// bits an entry) and the transpose table {0, 1, 0, 2, 2, 3, 1, 3} (2 bits an
+// entry) as immediates: a lookup is a shift, not a constant-cache access.
+constexpr unsigned long long kActThBits = 0x8db6db692488ULL;
+constexpr unsigned kTransposeBits = 0xde84u;
 constexpr int kPad = 4;
 
-__global__ void alf_classify_kernel(
+// A classification tile: TBX x TBY 4x4 blocks, one a thread in the sums.
+// Block rows by0 .. by0 + TBY - 1 take the laplacian rows gy = 2 by0 ..
+// 2 (by0 + TBY) + 1 (GR of them) and, in each, the even positions gx =
+// 2 bx0 .. 2 (bx0 + TBX) + 1 as NP pairs; their rows (y = 2 gy - 2 and the
+// VB-adjusted y - 1, y + 1, y + 2) lie in the band of padded rows
+// 4 by0 + 1 .. 4 by0 + 4 TBY + 6, their columns in padded columns
+// 4 bx0 .. 4 bx0 + 4 TBX + 7.
+struct ClsTile {
+  static constexpr int TBX = 32, TBY = 8, NT = TBX * TBY;
+  static constexpr int GR = 2 * TBY + 2, NP = TBX + 1;
+  static constexpr int BR = 4 * TBY + 6, BC = 4 * TBX + 8;  // BC: int4 rows
+};
+
+// Band columns 4j .. 4j + 7 of the row `src` (a band row, or -1 - the
+// plane's row for one outside the band, read clamped from the plane).
+__device__ __forceinline__ void cls_row(int (&a)[8], const int* band, int src, int j,
+                                        const int* __restrict__ pad, int Wp, int c0) {
+  if (src >= 0) {
+    const int* p = band + src * ClsTile::BC + 4 * j;
+    const int4 u = *reinterpret_cast<const int4*>(p);
+    const int4 w = *reinterpret_cast<const int4*>(p + 4);
+    a[0] = u.x, a[1] = u.y, a[2] = u.z, a[3] = u.w;
+    a[4] = w.x, a[5] = w.y, a[6] = w.z, a[7] = w.w;
+  } else {
+    const int* row = pad + (long long)(-1 - src) * Wp;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) a[k] = row[clampi(c0 + 4 * j + k, Wp)];
+  }
+}
+
+__global__ void __launch_bounds__(ClsTile::NT) alf_classify_kernel(
     const int* __restrict__ pad, int Hp, int Wp, const int* __restrict__ y_i,
     const int* __restrict__ yd_i, const int* __restrict__ yu_i,
     const int* __restrict__ yu2_i, int nr, const uint8_t* __restrict__ drop_first,
     const uint8_t* __restrict__ drop_last, const int* __restrict__ mult, int H4,
-    int W4, int shift, int* __restrict__ cls, int* __restrict__ tr) {
-  const int bx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int by = blockIdx.y * blockDim.y + threadIdx.y;
-  if (bx >= W4 || by >= H4) return;
-  const bool dl = drop_last[by], df = drop_first[by];
+    int W4, int shift, int vec, int* __restrict__ cls, int* __restrict__ tr) {
+  using T = ClsTile;
+  __shared__ __align__(16) int band[T::BR * T::BC];
+  __shared__ int s_grad[4][T::GR][T::NP];  // V, H, D0, D1 of a pair of positions
+  __shared__ int s_row[4][T::GR];          // y, yd, yu, yu2: band row or -1 - row
+  const int tid = threadIdx.x;
+  const int bx0 = blockIdx.x * T::TBX, by0 = blockIdx.y * T::TBY;
+  const int r0 = 4 * by0 + 1, c0 = 4 * bx0;
+  // this thread's block's row flags first: their round trip overlaps the band's
+  const int tx = tid % T::TBX, ty = tid / T::TBX;
+  const int bx = bx0 + tx, by = by0 + ty;
+  const bool valid = bx < W4 && by < H4;
+  bool df = false, dl = false;
+  int m = 0;
+  if (valid) {
+    df = drop_first[by];
+    dl = drop_last[by];
+    m = mult[by];
+  }
+  if (tid < 4 * T::GR) {
+    const int k = tid / T::GR, gr = tid % T::GR;
+    const int* tab = k == 0 ? y_i : (k == 1 ? yd_i : (k == 2 ? yu_i : yu2_i));
+    const int r = clampi(tab[clampi(2 * by0 + gr, nr)], Hp);
+    s_row[k][gr] = r >= r0 && r < r0 + T::BR ? r - r0 : -1 - r;
+  }
+  // the band, rows and columns clamped into the plane; all loads in flight
+  // before the first shared store
+  constexpr int G = T::BC / 4, N = T::BR * G, K = (N + T::NT - 1) / T::NT;
+  int4 v[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = tid + k * T::NT;
+    if (i >= N) continue;
+    const int col = c0 + 4 * (i % G);
+    const int* row = pad + (long long)clampi(r0 + i / G, Hp) * Wp;
+    if (vec && col + 3 < Wp) {
+      v[k] = *reinterpret_cast<const int4*>(row + col);
+    } else {
+      v[k].x = row[clampi(col, Wp)];
+      v[k].y = row[clampi(col + 1, Wp)];
+      v[k].z = row[clampi(col + 2, Wp)];
+      v[k].w = row[clampi(col + 3, Wp)];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int i = tid + k * T::NT;
+    if (i < N) *reinterpret_cast<int4*>(band + (i / G) * T::BC + 4 * (i % G)) = v[k];
+  }
+  __syncthreads();
+
+  // the gradients of the even positions 2 bx0 + 2j and 2 bx0 + 2j + 1 of
+  // laplacian row 2 by0 + gr, summed: band columns 4j + 1 .. 4j + 6
+  for (int p = tid; p < T::GR * T::NP; p += T::NT) {
+    const int gr = p / T::NP, j = p % T::NP;
+    int Ry[8], Rd[8], Ru[8], Ru2[8];
+    cls_row(Ry, band, s_row[0][gr], j, pad, Wp, c0);
+    cls_row(Rd, band, s_row[1][gr], j, pad, Wp, c0);
+    cls_row(Ru, band, s_row[2][gr], j, pad, Wp, c0);
+    cls_row(Ru2, band, s_row[3][gr], j, pad, Wp, c0);
+    int sv = 0, sh = 0, sd0 = 0, sd1 = 0;
+#pragma unroll
+    for (int x = 2; x <= 4; x += 2) {  // the even sample's column
+      const int y0v = Ry[x] * 2, yup1 = Ru[x + 1] * 2;
+      sv += abs(y0v - Rd[x] - Ru[x]) + abs(yup1 - Ry[x + 1] - Ru2[x + 1]);
+      sh += abs(y0v - Ry[x + 1] - Ry[x - 1]) + abs(yup1 - Ru[x + 2] - Ru[x]);
+      sd0 += abs(y0v - Rd[x - 1] - Ru[x + 1]) + abs(yup1 - Ry[x] - Ru2[x + 2]);
+      sd1 += abs(y0v - Ru[x - 1] - Rd[x + 1]) + abs(yup1 - Ru2[x] - Ry[x + 2]);
+    }
+    s_grad[0][gr][j] = sv;
+    s_grad[1][gr][j] = sh;
+    s_grad[2][gr][j] = sd0;
+    s_grad[3][gr][j] = sd1;
+  }
+  __syncthreads();
+
+  if (!valid) return;
+  // the block's window: pairs tx and tx + 1 of laplacian rows 2 ty + a
   const int a_lo = (!dl && df) ? 1 : 0, a_hi = dl ? 2 : 3;
   int sv = 0, sh = 0, sd0 = 0, sd1 = 0;
   for (int a = a_lo; a <= a_hi; ++a) {
-    const int gy = clampi(2 * by + a, nr);
-    const int* Ry = pad + (long long)clampi(y_i[gy], Hp) * Wp;
-    const int* Rd = pad + (long long)clampi(yd_i[gy], Hp) * Wp;
-    const int* Ru = pad + (long long)clampi(yu_i[gy], Hp) * Wp;
-    const int* Ru2 = pad + (long long)clampi(yu2_i[gy], Hp) * Wp;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int x = 2 * (2 * bx + k) + 2;  // padded column of the even sample
-      const int cm = clampi(x - 1, Wp), c0 = clampi(x, Wp);
-      const int c1 = clampi(x + 1, Wp), c2 = clampi(x + 2, Wp);
-      const int y0v = Ry[c0] * 2, yup1 = Ru[c1] * 2;
-      sv += abs(y0v - Rd[c0] - Ru[c0]) + abs(yup1 - Ry[c1] - Ru2[c1]);
-      sh += abs(y0v - Ry[c1] - Ry[cm]) + abs(yup1 - Ru[c2] - Ru[c0]);
-      sd0 += abs(y0v - Rd[cm] - Ru[c1]) + abs(yup1 - Ry[c0] - Ru2[c2]);
-      sd1 += abs(y0v - Ru[cm] - Rd[c1]) + abs(yup1 - Ru2[c0] - Ry[c2]);
-    }
+    const int gr = 2 * ty + a;
+    sv += s_grad[0][gr][tx] + s_grad[0][gr][tx + 1];
+    sh += s_grad[1][gr][tx] + s_grad[1][gr][tx + 1];
+    sd0 += s_grad[2][gr][tx] + s_grad[2][gr][tx + 1];
+    sd1 += s_grad[3][gr][tx] + s_grad[3][gr][tx + 1];
   }
-  const int activity = clip3(0, 15, mul_wrap(sv + sh, mult[by]) >> shift);
-  int class_idx = kActTh[activity];
+  const int activity = clip3(0, 15, mul_wrap(sv + sh, m) >> shift);
+  int class_idx = (int)(kActThBits >> (3 * activity)) & 7;
   const bool hv_gt = sv > sh;
   const int hv1 = hv_gt ? sv : sh, hv0 = hv_gt ? sh : sv;
   const int dir_hv = hv_gt ? 1 : 3;
@@ -82,7 +193,7 @@ __global__ void alf_classify_kernel(
   if (strength > 0) class_idx += (((main_dir & 1) << 1) + strength) * 5;
   const long long o = (long long)by * W4 + bx;
   cls[o] = class_idx;
-  tr[o] = kTransposeTable[clampi(main_dir * 2 + (sec_dir >> 1), 8)];
+  tr[o] = (int)(kTransposeBits >> (2 * clampi(main_dir * 2 + (sec_dir >> 1), 8))) & 3;
 }
 
 // The diamond's taps as (row-offset pair, dx): pair 0 is the current row
@@ -316,11 +427,13 @@ VTM_API int vtm_alf_classify(const int* pad, int Hp, int Wp, const int* y_i,
                              int W4, int bit_depth, int* cls, int* tr,
                              void* stream) {
   if (H4 == 0 || W4 == 0) return 0;
-  const dim3 block(32, 4);
-  alf_classify_kernel<<<grid2d(W4, H4, block), block, 0,
-                        (cudaStream_t)stream>>>(
+  using T = ClsTile;
+  const dim3 grid((unsigned)((W4 + T::TBX - 1) / T::TBX),
+                  (unsigned)((H4 + T::TBY - 1) / T::TBY));
+  const int vec = (Wp & 3) == 0 && ((uintptr_t)pad & 15) == 0;
+  alf_classify_kernel<<<grid, T::NT, 0, (cudaStream_t)stream>>>(
       pad, Hp, Wp, y_i, yd_i, yu_i, yu2_i, nr, drop_first, drop_last, mult, H4,
-      W4, bit_depth + 4, cls, tr);
+      W4, bit_depth + 4, vec, cls, tr);
   return launch_status();
 }
 

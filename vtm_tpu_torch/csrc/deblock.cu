@@ -6,7 +6,12 @@
 // jax kernel's: every decision and every filter reads the input plane.  The
 // jax version sums per-window deltas; writing each filtered sample once gives
 // the same integers, because the max-filter-length rules keep the samples one
-// edge writes disjoint from another's.
+// edge writes disjoint from another's.  That is a precondition on the maps:
+// an active luma edge at x writes at most x - max_p .. x + max_q - 1, and
+// these extents of the edges of one line must not overlap (VVC's max_p /
+// max_q rules guarantee it for every map a decoder derives).  On maps that
+// break it, the plain versions sum both edges' deltas and these kernels keep
+// one edge's samples: the outputs are defined only for disjoint extents.
 //
 // vtm_deblock_luma_ver and vtm_deblock_chroma_ver own the output by sample: a
 // block owns a tile of TA samples across the edges by TL lines along them and
@@ -34,11 +39,16 @@
 // The delta form (vtm_deblock_luma_ver_delta, the counterpart of
 // luma_ver_delta, deblock_kernel.py:68) runs on a plane already extended by
 // 8 columns each side (a shard with its neighbours' halo under width
-// sharding) and returns the sample deltas over the extended width: one
-// thread a (row, segment) repeats the segment's decision and adds each
-// filtered sample's (new - old) into a zeroed buffer with an integer atomic,
-// so the deltas that fall into the halo are what the neighbouring shard
-// receives back.  It shares the decision and filter functions.
+// sharding) and returns the sample deltas over the extended width, so the
+// deltas that fall into the halo are what the neighbouring shard receives
+// back.  It is the VER luma tile kernel's DELTA instantiation: the same
+// tile (4 lines high: a shard is a small launch, whose time is its blocks'
+// latency), decisions, work list and filter, with its edges at extended
+// columns 8 + 4s (s the map column) and an output tile that starts at zero
+// and takes (new - old) of each filtered sample; the whole tile, zeros
+// included, is stored over the extended width, so one launch writes every
+// element of the buffer (no memset), and with the extents disjoint (above)
+// no atomics are needed.
 //
 // Bound on the H100: memory.  A 1080p luma direction must move the plane in
 // and out and the seven maps once, 19.05 MB (5.7 us at 3.35 TB/s); both
@@ -297,9 +307,10 @@ __device__ __forceinline__ void chroma_filter(const int* s, int dec, int tc,
 }
 
 constexpr int kThreads = 256;
-// tile shapes, samples across the edges x lines along them, [VER, HOR]
-// (the fastest of those tried on the H100: PERF.md)
-constexpr int kLumaTA[2] = {128, 64}, kLumaTL[2] = {16, 32};
+// tile shapes, samples across the edges x lines along them, [VER, HOR];
+// the delta form's tiles are 4 lines (one segment) high (the fastest of
+// those tried on the H100: PERF.md)
+constexpr int kLumaTA[2] = {128, 64}, kLumaTL[2] = {16, 32}, kDeltaTL = 4;
 constexpr int kChromaTA[2] = {64, 64}, kChromaTL[2] = {32, 32};
 
 // A block's tile: TA samples across the edges by TL lines along them, plus
@@ -356,13 +367,13 @@ struct Tile {
 };
 
 // The tile at (across a0, line l0) of the picture-layout plane [Hp, Wp] and
-// its halo into s_in, its own samples into s_out too, 4 samples of a row at
-// a time (one 16-byte load where `vec`: Wp a multiple of 4 and the plane
-// 16-byte aligned).  Rows and columns are clamped into the plane: across
-// the edges that is the jax gather's clamp, along them (lines past the
-// plane) the samples are never used.  A thread's loads are all issued
-// before its first shared store.
-template <class T, bool HOR>
+// its halo into s_in, its own samples into s_out too (zeros with ZERO_OUT),
+// 4 samples of a row at a time (one 16-byte load where `vec`: Wp a multiple
+// of 4 and the plane 16-byte aligned).  Rows and columns are clamped into
+// the plane: across the edges that is the jax gather's clamp, along them
+// (lines past the plane) the samples are never used.  A thread's loads are
+// all issued before its first shared store.
+template <class T, bool HOR, bool ZERO_OUT>
 __device__ __forceinline__ void load_tile(const int* __restrict__ in, int Hp,
                                           int Wp, int a0, int l0, bool vec,
                                           int* s_in, int* s_out) {
@@ -392,7 +403,8 @@ __device__ __forceinline__ void load_tile(const int* __restrict__ in, int Hp,
     *reinterpret_cast<int4*>(s_in + r * T::PITCH + c) = v[k];
     const int orow = HOR ? r - T::HALO : r, ocol = HOR ? c : c - T::HALO;
     if (HOR ? orow >= 0 && orow < T::TA : ocol >= 0 && ocol < T::TA)
-      *reinterpret_cast<int4*>(s_out + orow * T::OPITCH + ocol) = v[k];
+      *reinterpret_cast<int4*>(s_out + orow * T::OPITCH + ocol) =
+          ZERO_OUT ? int4{0, 0, 0, 0} : v[k];
   }
 }
 
@@ -444,15 +456,17 @@ struct Work {
 };
 
 // Luma edges of the plane [Hp, Wp].  Map element (segment along, edge) of
-// the oriented frame is at g * mrs + e * mcs.
-template <bool HOR>
+// the oriented frame is at g * mrs + e * mcs.  DELTA (VER only): the plane
+// is extended by 8 columns each side, the edge at column x has map column
+// x / 4 - 2, and the output is each sample's (new - old), 0 where unfiltered.
+template <bool HOR, bool DELTA>
 __global__ void __launch_bounds__(kThreads) luma_tile_kernel(
     const int* __restrict__ in, int* __restrict__ out, int Hp, int Wp,
     const uint8_t* __restrict__ act, const int* __restrict__ tcm,
     const int* __restrict__ betam, const int* __restrict__ mpm,
     const int* __restrict__ mqm, const uint8_t* __restrict__ nopm,
     const uint8_t* __restrict__ noqm, long long mrs, long long mcs, int maxv) {
-  using T = Tile<HOR, 12, kLumaTA[HOR], kLumaTL[HOR]>;
+  using T = Tile<HOR, 12, kLumaTA[HOR], DELTA ? kDeltaTL : kLumaTL[HOR]>;
   constexpr int NG = T::TL / 4, NE = T::TA / 4 + 3;  // edges x0-4 .. x0+TA+4
   constexpr int ND = NG * NE, D = (ND + kThreads - 1) / kThreads;
   __shared__ __align__(16) int s_in[T::IN];
@@ -460,7 +474,9 @@ __global__ void __launch_bounds__(kThreads) luma_tile_kernel(
   __shared__ int s_dec[ND], s_tc[ND];
   __shared__ Work<ND> s_work;
   s_work.reset();
-  const int nseg = (HOR ? Hp : Wp) >> 2, nline = ((HOR ? Wp : Hp) >> 2) << 2;
+  static_assert(!(HOR && DELTA), "the delta form is VER only");
+  const int nseg = DELTA ? (Wp - 16) >> 2 : (HOR ? Hp : Wp) >> 2;
+  const int nline = ((HOR ? Wp : Hp) >> 2) << 2;
   const int a0 = (HOR ? blockIdx.y : blockIdx.x) * T::TA;
   const int l0 = (HOR ? blockIdx.x : blockIdx.y) * T::TL;
   // the maps of this thread's segments (g, e), loaded with the tile
@@ -472,9 +488,10 @@ __global__ void __launch_bounds__(kThreads) luma_tile_kernel(
     int g, e;
     T::segment(i, NG, NE, &g, &e);
     const int x = a0 + 4 * (e - 1), line = l0 + 4 * g;
+    const int mc = (x >> 2) - (DELTA ? 2 : 0);  // negative for x < 0
     on[d] = false;
-    if (i < ND && x >= 0 && (x >> 2) < nseg && line < nline) {
-      const long long mo = (long long)(line >> 2) * mrs + (long long)(x >> 2) * mcs;
+    if (i < ND && mc >= 0 && mc < nseg && line < nline) {
+      const long long mo = (long long)(line >> 2) * mrs + (long long)mc * mcs;
       on[d] = act[mo];
       tc[d] = tcm[mo];
       beta[d] = betam[mo];
@@ -484,7 +501,7 @@ __global__ void __launch_bounds__(kThreads) luma_tile_kernel(
     }
   }
   const bool vec = (Wp & 3) == 0 && ((size_t)in & 15) == 0 && ((size_t)out & 15) == 0;
-  load_tile<T, HOR>(in, Hp, Wp, a0, l0, vec, s_in, s_out);
+  load_tile<T, HOR, DELTA>(in, Hp, Wp, a0, l0, vec, s_in, s_out);
   __syncthreads();
 #pragma unroll
   for (int d = 0; d < D; ++d) {
@@ -520,7 +537,7 @@ __global__ void __launch_bounds__(kThreads) luma_tile_kernel(
     }
     luma_filter(s, dec, s_tc[di], maxv, [&](int k, int v) {
       const int a = xe + k;
-      if (a >= 0 && a < T::TA) s_out[T::out(l, a)] = v;
+      if (a >= 0 && a < T::TA) s_out[T::out(l, a)] = DELTA ? v - L(s, k) : v;
     });
   }
   __syncthreads();
@@ -580,7 +597,7 @@ __global__ void __launch_bounds__(kThreads) chroma_tile_kernel(
     }
   }
   const bool vec = (Wp & 3) == 0 && ((size_t)c.in & 15) == 0 && ((size_t)c.out & 15) == 0;
-  load_tile<T, HOR>(c.in, Hp, Wp, a0, l0, vec, s_in, s_out);
+  load_tile<T, HOR, false>(c.in, Hp, Wp, a0, l0, vec, s_in, s_out);
   __syncthreads();
 #pragma unroll
   for (int d = 0; d < D; ++d) {
@@ -620,39 +637,6 @@ __global__ void __launch_bounds__(kThreads) chroma_tile_kernel(
   store_tile<T, HOR>(c.out, Hp, Wp, a0, l0, vec, s_out);
 }
 
-// Deltas of the vertical luma edges of `pad` [H, Wp] (one thread a row and
-// segment; maps [H / 4, (Wp - 16) / 4]).
-__global__ void luma_ver_delta_kernel(
-    const int* __restrict__ pad, int* __restrict__ delta, int H, int Wp,
-    const uint8_t* __restrict__ act, const int* __restrict__ tcm,
-    const int* __restrict__ betam, const int* __restrict__ mpm,
-    const int* __restrict__ mqm, const uint8_t* __restrict__ nopm,
-    const uint8_t* __restrict__ noqm, int maxv) {
-  const int seg = blockIdx.x * blockDim.x + threadIdx.x;
-  const int row = blockIdx.y * blockDim.y + threadIdx.y;
-  const int nseg = (Wp - 16) >> 2;
-  if (seg >= nseg || row >= ((H >> 2) << 2)) return;
-  const long long mo = (long long)(row >> 2) * nseg + seg;
-  if (!act[mo]) return;
-  // the window x0-8 .. x0+7 lies in the extended plane
-  const int* r0 = pad + (long long)(row & ~3) * Wp + seg * 4;
-  const int* rs = pad + (long long)row * Wp + seg * 4;
-  int l0[16], l3[16], s[16];
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    l0[j] = r0[j];
-    l3[j] = r0[3 * Wp + j];
-    s[j] = rs[j];
-  }
-  const int tc = tcm[mo];
-  const int dec = luma_decide(l0, l3, tc, betam[mo], mpm[mo], mqm[mo],
-                              !nopm[mo], !noqm[mo]);
-  if (dec == kNone) return;
-  int* orow = delta + (long long)row * Wp + seg * 4 + 8;
-  luma_filter(s, dec, tc, maxv,
-              [&](int i, int v) { atomicAdd(orow + i, v - L(s, i)); });
-}
-
 static inline dim3 tile_grid(bool hor, int Hp, int Wp, int ta, int tl, int nz) {
   const int across = hor ? Hp : Wp, along = hor ? Wp : Hp;
   const unsigned na = (unsigned)((across + ta - 1) / ta);
@@ -684,28 +668,26 @@ VTM_API int vtm_deblock_luma_ver(
   cudaStream_t st = (cudaStream_t)stream;
   const int maxv = (1 << bit_depth) - 1;
   if (hor)
-    luma_tile_kernel<true><<<grid, kThreads, 0, st>>>(
+    luma_tile_kernel<true, false><<<grid, kThreads, 0, st>>>(
         in, out, Hp, Wp, act, tc, beta, max_p, max_q, no_p, no_q, mrs, mcs, maxv);
   else
-    luma_tile_kernel<false><<<grid, kThreads, 0, st>>>(
+    luma_tile_kernel<false, false><<<grid, kThreads, 0, st>>>(
         in, out, Hp, Wp, act, tc, beta, max_p, max_q, no_p, no_q, mrs, mcs, maxv);
   return launch_status();
 }
 
 // Deltas of the vertical luma edges of a contiguous plane `pad` extended by
-// 8 columns each side (Wp = W + 16 columns; maps [H / 4, W / 4]).
+// 8 columns each side (Wp = W + 16 columns; maps [H / 4, W / 4]), every
+// element of `delta` [H, Wp] written by one launch.
 VTM_API int vtm_deblock_luma_ver_delta(
     const int* pad, int* delta, int H, int Wp, const uint8_t* act,
     const int* tc, const int* beta, const int* max_p, const int* max_q,
     const uint8_t* no_p, const uint8_t* no_q, int bit_depth, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = cudaMemsetAsync(delta, 0, (size_t)H * Wp * sizeof(int), st);
-  if (e != cudaSuccess) return (int)e;
-  const int nseg = (Wp - 16) >> 2, nrow = (H >> 2) << 2;
-  if (nseg <= 0 || nrow == 0) return 0;
-  const dim3 block(32, 8);
-  luma_ver_delta_kernel<<<grid2d(nseg, nrow, block), block, 0, st>>>(
-      pad, delta, H, Wp, act, tc, beta, max_p, max_q, no_p, no_q,
+  if (H == 0 || Wp == 0) return 0;
+  const long long nseg = Wp >= 16 ? (Wp - 16) >> 2 : 0;
+  luma_tile_kernel<false, true><<<tile_grid(false, H, Wp, kLumaTA[0], kDeltaTL, 1),
+                                  kThreads, 0, (cudaStream_t)stream>>>(
+      pad, delta, H, Wp, act, tc, beta, max_p, max_q, no_p, no_q, nseg, 1,
       (1 << bit_depth) - 1);
   return launch_status();
 }
@@ -742,8 +724,8 @@ VTM_API int vtm_deblock_chroma_ver(
   return launch_status();
 }
 
-// The launch shape of the four tile kernels (luma VER, luma HOR, chroma VER,
-// chroma HOR) on the current card, five ints each: threads, static shared
+// The launch shape of the five tile kernels (luma VER, luma HOR, chroma VER,
+// chroma HOR, the luma VER delta form) on the current card, five ints each: threads, static shared
 // bytes and registers (cudaFuncGetAttributes), resident blocks an SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), local (spill) bytes a
 // thread.  Not a kernel: nothing is launched.
@@ -764,9 +746,10 @@ static int tile_config(F* fn, int* o) {
 }
 
 VTM_API int vtm_deblock_config(int* o) {
-  int e = tile_config(luma_tile_kernel<false>, o);
-  if (!e) e = tile_config(luma_tile_kernel<true>, o + 5);
+  int e = tile_config(luma_tile_kernel<false, false>, o);
+  if (!e) e = tile_config(luma_tile_kernel<true, false>, o + 5);
   if (!e) e = tile_config(chroma_tile_kernel<false>, o + 10);
   if (!e) e = tile_config(chroma_tile_kernel<true>, o + 15);
+  if (!e) e = tile_config(luma_tile_kernel<false, true>, o + 20);
   return e;
 }

@@ -399,13 +399,15 @@ def _chroma_seg_cuda(planes, comp_maps, shared_maps, mv, bit_depth, hor,
 
 
 CONFIG_FIELDS = ("threads", "smem_bytes", "registers", "blocks_per_sm", "local_bytes")
-TILE_KERNELS = ("luma_tile_kernel<false>", "luma_tile_kernel<true>",
-                "chroma_tile_kernel<false>", "chroma_tile_kernel<true>")
+TILE_KERNELS = ("luma_tile_kernel<false, false>", "luma_tile_kernel<true, false>",
+                "chroma_tile_kernel<false>", "chroma_tile_kernel<true>",
+                "luma_tile_kernel<false, true>")
 
 
 def kernel_config() -> dict:
-    """The launch shape of the four tile kernels of csrc/deblock.cu (VER and
-    HOR, luma and chroma) on the current card: {kernel: {CONFIG_FIELDS}}
+    """The launch shape of the five tile kernels of csrc/deblock.cu (VER and
+    HOR, luma and chroma, and the luma VER delta form of
+    `vtm_deblock_luma_ver_delta`) on the current card: {kernel: {CONFIG_FIELDS}}
     (registers and static shared bytes from cudaFuncGetAttributes, resident
     blocks from cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     n = len(CONFIG_FIELDS)

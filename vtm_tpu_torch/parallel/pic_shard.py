@@ -58,6 +58,22 @@ def _halo_cols(shards, h: int):
     return out
 
 
+def add_halo_deltas(shards, deltas, h: int):
+    """Each lane's [H, Wl] shard plus its deltas [H, Wl + 2h] over its own
+    columns and the deltas its width-axis neighbours computed for its first
+    and last h columns (their halo columns)."""
+    n = len(shards)
+    out = []
+    for i, x in enumerate(shards):
+        x = x + deltas[i][:, h:-h]
+        if i > 0:
+            x[:, :h] += deltas[i - 1][:, -h:].to(x.device)
+        if i < n - 1:
+            x[:, -h:] += deltas[i + 1][:, :h].to(x.device)
+        out.append(x)
+    return out
+
+
 def _split_cols(a: torch.Tensor, n: int, devs, axis: int = -1):
     """a split into n equal parts along `axis`, part i on devs[i]."""
     w = a.shape[axis] // n
@@ -83,13 +99,7 @@ def make_sharded_luma_filters(mesh, have_sao: bool, have_alf: bool, bd: int):
         dvs = list(zip(*(_split_cols(m, n, lanes) for m in dv)))
         acc = [DK.luma_ver_delta(e, *m, bd) for e, m in
                zip(_halo_cols(xs, 8), dvs)]
-        for i in range(n):
-            x_i = xs[i] + acc[i][:, 8:-8]
-            if i > 0:
-                x_i[:, :8] += acc[i - 1][:, -8:].to(x_i.device)
-            if i < n - 1:
-                x_i[:, -8:] += acc[i + 1][:, :8].to(x_i.device)
-            xs[i] = x_i
+        xs = add_halo_deltas(xs, acc, 8)
         # deblock HOR: column-local after the transpose
         dhs = list(zip(*(_split_cols(m, n, lanes, axis=0) for m in dh)))
         for i in range(n):
