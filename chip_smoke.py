@@ -14,8 +14,8 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    (ptxas -v; a template instantiation with its arguments), and the
    deblocking tile kernels' launch shape (resident blocks an SM); an RMD
    kernel that spills, or an MC, ALF-filter, ALF-classifier, luma
-   deblocking tile, FIR or RMD-reduction kernel with a stack frame or
-   spills, fails;
+   deblocking tile, FIR, RMD-reduction or register-tiled inverse
+   transform kernel with a stack frame or spills, fails;
 3. each kernel against its plain torch version, exactly:
    - the filter kernels on the real chain inputs of POC 0 of
      testdata/ai_full_hd1080_qp37.bit (1920x1080 4:2:0 8-bit, LMCS +
@@ -24,10 +24,10 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    - the MC, DMVR-search, FIR and BDOF kernels on the inputs of every call
      of the port's own CUDA decode of testdata/ra_full_bq416_qp37.bit
      (416x240 RA, every inter tool on; the FIR group by group and as
-     dmvr_final_pack's one launch), and on numpy-seeded batches the size
-     of a 1080p 4:2:0 picture (the FIR also as a six-group
-     dmvr_final_pack);
-   kernel and plain times from CUDA events, on the 1080p inputs: the
+     dmvr_final_pack's one launch), timed there as the decode launches
+     them, and on numpy-seeded batches the size of a 1080p 4:2:0 picture
+     (the FIR also as a six-group dmvr_final_pack);
+   kernel and plain times from CUDA events: the
    kernel's device time (`ms`: a spin kernel queued ahead of the start
    event keeps the host's issue time out of the window; a row that cannot
    be timed so is printed as host-paced, with the reason) beside the time
@@ -51,18 +51,30 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
      (the VER result transposed, edge-padded), and beside them the device
      time of an empty kernel, of a copy of one VER and one HOR shard's
      plane, and of a one-tile launch of the delta and of the classifier (a
-     launch's floors); the classifier on one 248-column shard as the
-     sharded chain pads it; the extended-plane SAO on the eight VER
-     shards; the recon/SSE epilogue on two 1080p planes of 32x32 blocks;
+     launch's floors); the classifier and the luma ALF filter on one
+     248-column shard as the sharded chain pads it; the extended-plane SAO
+     on the eight VER shards; the recon/SSE epilogue on two 1080p planes
+     of 32x32 blocks;
+   - the multi-device path's MC and reconstruction kernels at the shapes
+     its lanes launch them (phase 6's own inputs): vtm_mc_tiles on one
+     lane's share of each sharded MC batch (the 1080p-sized seeded batch
+     and the RA slice on 1 and 4 lanes, the ra_full_small208_qp32 batch on
+     1, 2 and 8), vtm_inv_transform and vtm_recon_sse on one lane's slice
+     of the (2, 2040, 32, 32) reconstruction step on 1 x 1 and 2 x 2 lanes
+     (4,080 and 1,020 32x32 blocks);
    each row of the kernel JSON carries its bound: the larger of the bytes
-   its timed calls must move (inputs read once, outputs written once) over
+   its timed calls must move (inputs read once, outputs written once; of
+   MC's reference planes, the rows its tiles can reach) over
    the card's 3.35 TB/s and their operations over the peak rate of their
    type (int32: 132 SMs x 64 lanes x 1.98 GHz; int8 tensor cores: 1,979
    T/s);
 4. the decode main path through vtm_tpu_torch.decoder.declib.Decoder(
    device="cuda"): the 1080p all-intra stream, three small all-intra streams
    (10-bit, 4:2:2, CC-ALF) and three inter streams (the flagship RA stream,
-   LD-B with every tool, IBC), every picture hash checked;
+   LD-B with every tool, IBC), every picture hash checked; then every
+   golden stream of testdata/ (48), each hash-exact (a stream whose
+   pictures are not all hashed: equal to the YUV beside it), with its
+   launches;
 5. the encode main path through vtm_tpu_torch.encoder.enc_lib.IntraEncoder(
    device="cuda"): three 208x120 encodes (CC-ALF, MIP and SAO engaged),
    byte-identical to the same encodes with device="cpu", and one 1920x1080
@@ -88,11 +100,19 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    counts, without the decodes that check their streams, prove that the
    encoder's RMD, deblocking, SAO and ALF ran through the kernels;
 7. each kernel's bound line (device and call ms; the library call's ms
-   where one was timed), the redesign order (each main path's launches x
-   (device ms - bound ms) per launch of the timed calls at that path's
-   shape: 1080p for the decode and encode paths, a shard for the
-   multi-device path, the other where only one was timed), one JSON line
-   of per-kernel results, then the device line, last.
+   where one was timed), the redesign order (each kernel's launches x
+   (device ms - bound ms) per launch of its timed calls at the shape the
+   launches run at: "picture" for the decode and encode paths and for the
+   multi-device path's gop-batched chain, whose lanes take whole
+   pictures: the inter kernels' at the RA decode's recorded calls (the
+   MC launches of the two 208x120 inter streams too), the others' at
+   1080p (their launches on smaller streams too, which overstates
+   those); "shard" for its sharded luma chain, MC and reconstruction,
+   each shard case weighed as often as one run launches it; a kernel
+   with launches at a shape where none of its cases was timed fails),
+   the extended-plane SAO's shard launches beside a copy of a shard's
+   plane, one JSON line of per-kernel results, then the device line,
+   last.
 
     python3 chip_smoke.py --versus DIR
 
@@ -110,7 +130,10 @@ the MC tiles on phase 3's 1080p-sized seeded batches; alf.cu and
 common.cuh time the classifier on POC 0's luma and the ALF filter on its
 Y, Cb and Cr;
 refine.cu, fir.cuh and common.cuh time the FIR on phase 3's 1080p-sized
-luma blocks and six-group dmvr_final_pack call.
+luma blocks and six-group dmvr_final_pack call; transform.cu and
+common.cuh time the int32 inverse transform on the sharded
+reconstruction's 4,080- and 1,020-block lane slices of 32x32 DCT2 blocks
+and on 1080p-plane batches of the DCT2 sizes 8 to 64.
 """
 
 from __future__ import annotations
@@ -174,6 +197,10 @@ KERNEL_INFO = {
     "vtm_recon_sse": ("vtm_tpu_torch/csrc/transform.cu",
                       "vtm_tpu/parallel/mesh.py:58"),
 }
+# the shape of the inter kernels' numpy-seeded 1080p-sized batches: timed for
+# their rows; no main path launches them at that shape (the decode path's
+# inter launches are weighed at its recorded RA calls)
+SEEDED = "1080p seeded"
 # peak rates of one H100 SXM at 700 W: memory, int32 lanes, int8 tensor cores
 BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -189,7 +216,8 @@ NO_LOCAL_MEMORY = {
     **dict.fromkeys(("rmd_angular_kernel", "rmd_mip_kernel"),
                     ("spill_stores", "spill_loads")),
     **dict.fromkeys(("mc_tiles_kernel", "alf_filter_kernel", "fir_blocks_kernel",
-                     "rmd_reduce_kernel", "alf_classify_kernel", "luma_tile_kernel"),
+                     "rmd_reduce_kernel", "alf_classify_kernel", "luma_tile_kernel",
+                     "inv_transform_tile_kernel"),
                     ("spill_stores", "spill_loads", "stack_frame"))}
 # runs of each sharded stage whose host seconds are compared (median)
 REPEATS = 7
@@ -213,8 +241,9 @@ ENC_KERNELS = ("vtm_rmd_angular", "vtm_rmd_mip", "vtm_rmd_reduce",
                "vtm_alf_classify", "vtm_alf_filter")
 # decode kernels the encoder does not launch: only the decodes of its streams
 NOT_IN_ENCODER = {"vtm_ccalf_filter": "the encoder applies CC-ALF on the host "
-                                      "(vtm_tpu.encoder.alf_search.derive_ccalf, "
-                                      "taken unchanged)"}
+                                      "(vtm_tpu_torch/encoder/alf_search.py:"
+                                      "derive_ccalf, called from "
+                                      "encoder/enc_lib.py)"}
 
 
 def card_line() -> str:
@@ -358,9 +387,14 @@ def read_stream(name: str) -> bytes:
         return f.read()
 
 
+class Bytes(int):
+    """A byte count that nbytes adds as it stands: the part of an input that
+    a kernel can read, where that is less than the whole tensor."""
+
+
 def nbytes(*trees) -> int:
     """Bytes of the distinct tensors in nested tuples / lists (each counted
-    once, however often it appears)."""
+    once, however often it appears), plus every Bytes among them."""
     seen, total = set(), 0
 
     def walk(x):
@@ -368,6 +402,8 @@ def nbytes(*trees) -> int:
         if isinstance(x, (tuple, list)):
             for y in x:
                 walk(y)
+        elif isinstance(x, Bytes):
+            total += x
         elif hasattr(x, "data_ptr") and x.data_ptr() not in seen:
             seen.add(x.data_ptr())
             total += x.numel() * x.element_size()
@@ -387,21 +423,28 @@ class KernelCheck:
         self.last = None  # the last timed comparison: ms, call_ms, plain_ms, bytes, ops
         self.rows = {k: dict(max_abs_err=0, ms=0.0, call_ms=0.0, plain_ms=0.0,
                              library_ms=None, bytes=0, ops=0.0, peak=INT32_OPS_PER_S,
-                             timed=0, launches=0, paced=[], shapes={})
+                             timed=0, launches=0, paced=[], shapes={}, cases=[])
                      for k in KERNEL_INFO}
+        self.floors = {}  # launch_floor's readings by label
 
     def compare(self, kernel: str, label: str, cuda_fn, plain_fn,
                 timed: bool = False, iters: int = 10, ins=(), ops: float = 0,
                 peak: float = INT32_OPS_PER_S, quiet: bool = False, library=None,
-                shape: str = "picture"):
+                shape: str = "picture", weight: int = 1):
         """Kernel against plain version; with `timed`, both timed, and the
         bound counted: the bytes of `ins` and of the result, and `ops`
         operations at `peak` per second, also per `shape` ("picture": the
-        single-device paths' 1080p shapes; "shard": the multi-device
-        path's).  `library`: (fn, agree) of PyTorch calls that compute the
-        same function, never used by the port: with `timed`, fn() is held to
-        the kernel's result (agree(got, fn()) must be true) and then timed
-        as the row's library_ms.  `quiet` prints nothing unless the two
+        shape at which the decode and encode paths and the multi-device
+        path's gop-batched chain launch the kernel, a whole picture: for
+        the filter, RMD and SATD kernels a 1080p one, for the inter kernels
+        each call of the RA decode; "shard": a lane's share of a picture or
+        a batch on the multi-device path; SEEDED: the inter kernels'
+        1080p-sized batches, which no path launches), there `weight` times:
+        the launches of one run of the path that this case stands for.
+        `library`: (fn, agree) of PyTorch calls that compute the same
+        function, never used by the port: with `timed`, fn() is held to the
+        kernel's result (agree(got, fn()) must be true) and then timed as
+        the row's library_ms.  `quiet` prints nothing unless the two
         disagree."""
         from vtm_tpu_torch import kernels as KN
 
@@ -431,11 +474,13 @@ class KernelCheck:
             row["launches"] += per_call
             by = row["shapes"].setdefault(shape, [0.0, 0, 0.0, 0])  # ms, bytes, ops, launches
             for k, v in enumerate((ms, nbytes(ins, got), ops, per_call)):
-                by[k] += v
+                by[k] += weight * v
             if paced:
                 row["paced"].append(f"{label}: {paced}")
             self.last = dict(ms=ms, call_ms=call, plain_ms=pms,
                              bytes=nbytes(ins, got), ops=ops)
+            row["cases"].append((label, ms, max(nbytes(ins, got) / BYTES_PER_S,
+                                                ops / peak) * 1e3))
             msg += (f", {per_call} launches a call, kernel "
                     f"{ms:.6f} ms ({paced + '; the call time' if paced else 'device'}), "
                     f"{call:.6f} ms (call), plain {pms:.6f} ms")
@@ -462,16 +507,17 @@ class KernelCheck:
         t_ops = row["ops"] / row["peak"] * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
-    def per_launch(self, kernel: str, shape: str) -> tuple[float, float, str]:
-        """(device ms, bound ms) per launch of the timed calls at `shape`, or
-        of those at the other shape where none was timed at this one, and
-        the shape they were taken at."""
+    def per_launch(self, kernel: str, shape: str) -> tuple[float, float]:
+        """(device ms, bound ms) per launch of the timed calls at `shape`,
+        each case counted `weight` times; raises where none was timed
+        there."""
         row = self.rows[kernel]
         if shape not in row["shapes"]:
-            shape = next(iter(row["shapes"]))
+            raise AssertionError(f"{kernel} has main-path launches at {shape} shape "
+                                 "but no timed case there")
         ms, nb, ops, n = row["shapes"][shape]
         bound = max(nb / BYTES_PER_S, ops / row["peak"]) * 1e3
-        return ms / n, bound / n, shape
+        return ms / n, bound / n
 
 
 def check_kernels(torch, chk: KernelCheck, y, cb, cr, lut, dbv, dbh, sao, alf,
@@ -627,9 +673,34 @@ def capture_inter_inputs(MK, RK, Decoder):
     return got
 
 
+def mc_ops(n: int, taps: int, tile: int) -> int:
+    """Multiply-adds of n MC tiles: the separable FIR's (tile + taps - 1) x
+    tile + tile x tile taps a tile."""
+    return n * ((tile + taps - 1) * tile + tile * tile) * taps
+
+
+def mc_ref_bytes(planes, jobs, taps: int, tile: int) -> Bytes:
+    """Bytes of the reference rows an MC batch can read: on each plane, the
+    whole rows that its tiles' windows reach (clamped to the plane, as the
+    kernel clamps), and no other (a lane's share of a batch in raster order
+    reads a band of each plane)."""
+    import torch
+
+    r_idx, y0 = jobs[0], jobs[2]
+    h = planes[0].shape[0]
+    rows = (y0[:, None].long() + torch.arange(tile + taps - 1, device=y0.device)).clamp(0, h - 1)
+    plane = r_idx.long().clamp(0, len(planes) - 1)[:, None].expand_as(rows)
+    reached = torch.zeros((len(planes), h), dtype=torch.bool, device=y0.device)
+    reached[plane, rows] = True
+    return Bytes(int(reached.sum()) * planes[0].shape[1] * planes[0].element_size())
+
+
 def check_inter_recorded(chk: KernelCheck, got, MK, RK):
     """The four inter kernels against their plain versions on the recorded
-    inputs of the flagship decode (not timed: the batches are small)."""
+    inputs of the flagship decode, timed: these are the decode path's own
+    shapes (shape "picture"), one case a launch.  The FIR is timed as the
+    decode launches it, dmvr_final_pack's one launch a call, and checked
+    group by group too."""
     label = RA_STREAM
     for (largs, cargs, bd), _ in got["mc"]:
         for args, lum in ((largs, True), (cargs, False)):
@@ -637,14 +708,18 @@ def check_inter_recorded(chk: KernelCheck, got, MK, RK):
                 continue
             taps, tile = MK.SHAPES[lum]
             kw = dict(taps=taps, tile=tile, bd=bd)
-            chk.compare("vtm_mc_tiles",
-                        f"{label} {'luma' if lum else 'chroma'}, {args[1].shape[0]} tiles",
+            planes, jobs, n = args[0], args[1:], args[1].shape[0]
+            chk.compare("vtm_mc_tiles", f"{label} {'luma' if lum else 'chroma'}, {n} tiles",
                         lambda: MK.mc_tiles_cuda(*args, **kw),
-                        lambda: MK.mc_tiles_plain(*args, **kw))
+                        lambda: MK.mc_tiles_plain(*args, **kw), timed=True,
+                        ins=(mc_ref_bytes(planes, jobs, taps, tile), jobs),
+                        ops=mc_ops(n, taps, tile))
     for args, kw in got["search"]:
-        chk.compare("vtm_dmvr_search", f"{label}, {args[0].shape[0]} sub-PUs",
+        n = args[0].shape[0]
+        chk.compare("vtm_dmvr_search", f"{label}, {n} sub-PUs",
                     lambda: RK.dmvr_search_cuda(*args, **kw),
-                    lambda: RK.dmvr_search_plain(*args, **kw))
+                    lambda: RK.dmvr_search_plain(*args, **kw), timed=True,
+                    ins=args, ops=n * 25 * (kw["dx"] * kw["dy"] // 2) * 3)
     for (l0, l1, cargs), kw in got["pack"]:
         jobs = pack_jobs(l0, l1, cargs, **kw)
         for a, fk in jobs:
@@ -654,11 +729,14 @@ def check_inter_recorded(chk: KernelCheck, got, MK, RK):
                         lambda: RK.fir_blocks_plain(*a, **fk))
         chk.compare("vtm_fir_blocks", f"{label}, dmvr_final_pack of {len(jobs)} groups",
                     lambda: RK.dmvr_final_pack(l0, l1, cargs, **kw),
-                    lambda: pack_plain(RK, jobs))
+                    lambda: pack_plain(RK, jobs), timed=True,
+                    ins=(l0, l1, cargs), ops=fir_ops(jobs))
     for args, kw in got["bdof"]:
-        chk.compare("vtm_bdof_blend", f"{label}, {args[0].shape[0]} sub-blocks",
+        n = args[0].shape[0]
+        chk.compare("vtm_bdof_blend", f"{label}, {n} sub-blocks",
                     lambda: RK.bdof_blend_batch_cuda(*args, **kw),
-                    lambda: RK.bdof_blend_batch_plain(*args, **kw))
+                    lambda: RK.bdof_blend_batch_plain(*args, **kw), timed=True,
+                    ins=args, ops=n * kw["w"] * kw["h"] * 30)
 
 
 def pack_jobs(l0, l1, cargs, w: int, h: int, wc: int, hc: int, bd: int):
@@ -729,41 +807,41 @@ def check_inter_1080p(chk: KernelCheck, MK, RK, dev, seed: int = 9):
     def d(a):
         return to_device(a, dev)
 
+    at = dict(timed=True, shape=SEEDED)
     for label, planes, jobs, kw in mc_1080p_cases(MK, rng, dev, bd):
         n, tile, taps = jobs[0].shape[0], kw["tile"], kw["taps"]
-        # separable FIR: (tile + taps - 1) x tile + tile x tile taps a tile
-        macs = n * ((tile + taps - 1) * tile + tile * tile) * taps
         chk.compare("vtm_mc_tiles", label,
                     lambda: MK.mc_tiles_cuda(planes, *jobs, **kw),
-                    lambda: MK.mc_tiles_plain(planes, *jobs, **kw), timed=True,
-                    ins=(planes, jobs), ops=macs)
+                    lambda: MK.mc_tiles_plain(planes, *jobs, **kw),
+                    ins=(mc_ref_bytes(planes, jobs, taps, tile), jobs),
+                    ops=mc_ops(n, taps, tile), **at)
     label = "1080p seeded, 8100 16x16"
     kw = dict(bd=bd, dx=16, dy=16)
     args = [d(a) for a in T.dmvr_case(rng, 8100, 16, 16, bd)]
     # 25 offsets, a SAD over the even rows of a 16x16 sub-PU (3 ops a sample)
     chk.compare("vtm_dmvr_search", f"{label} sub-PUs",
                 lambda: RK.dmvr_search_cuda(*args, **kw),
-                lambda: RK.dmvr_search_plain(*args, **kw), timed=True,
-                ins=args, ops=8100 * 25 * 128 * 3)
+                lambda: RK.dmvr_search_plain(*args, **kw),
+                ins=args, ops=8100 * 25 * 128 * 3, **at)
     kw = dict(w=16, h=16, taps=8, bd=bd)
     args = [d(a) for a in T.fir_blocks_case(rng, 8100, 8, 16, 16, bd)]
     chk.compare("vtm_fir_blocks", f"{label} luma blocks",
                 lambda: RK.fir_blocks_cuda(*args, **kw),
-                lambda: RK.fir_blocks_plain(*args, **kw), timed=True,
-                ins=args, ops=fir_ops([(args, kw)]))
+                lambda: RK.fir_blocks_plain(*args, **kw),
+                ins=args, ops=fir_ops([(args, kw)]), **at)
     kw = dict(bd=bd, w=16, h=16)
     args = [d(a) for a in T.bdof_case(rng, 8100, 16, 16, bd)]
     chk.compare("vtm_bdof_blend", f"{label} sub-blocks",
                 lambda: RK.bdof_blend_batch_cuda(*args, **kw),
-                lambda: RK.bdof_blend_batch_plain(*args, **kw), timed=True,
-                ins=args, ops=8100 * 256 * 30)
+                lambda: RK.bdof_blend_batch_plain(*args, **kw),
+                ins=args, ops=8100 * 256 * 30, **at)
     # the main path's form of the FIR: dmvr_final_pack's six groups, one launch
     l0, l1, cargs, kw = pack_1080p_case(rng, dev)
     jobs = pack_jobs(l0, l1, cargs, **kw)
     chk.compare("vtm_fir_blocks", f"{label}, dmvr_final_pack of 6 groups",
                 lambda: RK.dmvr_final_pack(l0, l1, cargs, **kw),
-                lambda: pack_plain(RK, jobs), timed=True,
-                ins=(l0, l1, cargs), ops=fir_ops(jobs))
+                lambda: pack_plain(RK, jobs),
+                ins=(l0, l1, cargs), ops=fir_ops(jobs), **at)
 
 
 def satd_ops(RC, h: int, w: int) -> int:
@@ -936,15 +1014,16 @@ def turns(torch, other_fn, this_fn, iters: int = 10):
 def versus(torch, other: str) -> int:
     """This checkout's kernels against another commit's build of the same
     sources in directory `other`, in one process on one card: the kernels
-    of each of rmd.cu, deblock.cu, mc.cu, alf.cu and refine.cu that `other`
-    holds."""
+    of each of rmd.cu, deblock.cu, mc.cu, alf.cu, refine.cu and transform.cu
+    that `other` holds."""
     from vtm_tpu_torch import kernels as KN
 
     print(card_line(), flush=True)
     for name, r in ptxas_report(KN.build(force=True, ptxas_verbose=True)).items():
         print(f"  ptxas: {name}: {r}", flush=True)
     runs = {"rmd.cu": versus_rmd, "deblock.cu": versus_deblock, "mc.cu": versus_mc,
-            "alf.cu": versus_alf, "refine.cu": versus_refine}
+            "alf.cu": versus_alf, "refine.cu": versus_refine,
+            "transform.cu": versus_transform}
     ran = [src for src in runs if os.path.exists(os.path.join(other, src))]
     if not ran:
         raise FileNotFoundError(f"{other} holds none of {', '.join(runs)}")
@@ -970,12 +1049,13 @@ def other_entries(KN, other: str, source: str, names):
 
 
 def versus_row(torch, other: str, name: str, label: str, other_fn, this_fn, theirs,
-               ins, sums: dict):
+               ins, sums: dict, ops: float = 0):
     """One row of --versus: the other build's call (it must launch), this
     build's output held equal to its `theirs`, both timed in turns; prints
-    the row with each build's share of the bytes bound (`ins` and the
-    output), adds (other ms, this ms, bytes) to sums[name], and returns this
-    build's output."""
+    the row with each build's share of the bound (the bytes of `ins` and
+    the output, or `ops` int32 operations, whichever takes longer), adds
+    (other ms, this ms, bytes, ops) to sums[name], and returns this build's
+    output."""
     if other_fn() != 0:
         raise RuntimeError(f"{other}: {name} refused")
     mine = this_fn()
@@ -985,22 +1065,22 @@ def versus_row(torch, other: str, name: str, label: str, other_fn, this_fn, thei
         raise AssertionError(f"{name} {label}: this build and {other} differ by {err}")
     o_ms, t_ms, t = turns(torch, other_fn, this_fn)
     nb = nbytes(ins, mine)
-    bound = nb / BYTES_PER_S * 1e3
-    acc = sums.setdefault(name, [0.0, 0.0, 0])
-    for k, v in enumerate((o_ms, t_ms, nb)):
+    bound = max(nb / BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
+    acc = sums.setdefault(name, [0.0, 0.0, 0, 0])
+    for k, v in enumerate((o_ms, t_ms, nb, ops)):
         acc[k] += v
     print(f"versus {name} {label}: other {o_ms:.6f} ms, this {t_ms:.6f} ms "
           f"({o_ms / t_ms:.2f}x; turns {', '.join(f'{x:.6f}' for x in t)}), {nb} bytes, "
-          f"bound {bound:.6f} ms ({100 * bound / t_ms:.2f} % this, "
+          f"{ops:.6g} ops, bound {bound:.6f} ms ({100 * bound / t_ms:.2f} % this, "
           f"{100 * bound / o_ms:.2f} % other), outputs equal", flush=True)
     return mine
 
 
 def versus_sums(sums: dict, what: str) -> None:
-    for name, (o_ms, t_ms, nb) in sums.items():
-        bound = nb / BYTES_PER_S * 1e3
+    for name, (o_ms, t_ms, nb, ops) in sums.items():
+        bound = max(nb / BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
         print(f"versus sum {name} ({what}): other {o_ms:.6f} ms, this {t_ms:.6f} ms "
-              f"({o_ms / t_ms:.2f}x), {nb} bytes, bound {bound:.6f} ms "
+              f"({o_ms / t_ms:.2f}x), {nb} bytes, {ops:.6g} ops, bound {bound:.6f} ms "
               f"({100 * bound / t_ms:.2f} % this, {100 * bound / o_ms:.2f} % other)",
               flush=True)
 
@@ -1171,9 +1251,9 @@ def versus_rmd(torch, KN, other: str) -> None:
 
 def versus_refine(torch, KN, other: str) -> None:
     """vtm_fir_blocks against the build of another refine.cu in `other`
-    (with its fir.cuh and common.cuh), in turns: on phase 3's 1080p-sized
+    (with its fir.cuh and common.cuh), in turns, on phase 3's 1080p-sized
     8,100 16x16 luma blocks, and on a dmvr_final_pack call of 8,100 16x16
-    sub-PUs (six groups).  An entry point of job groups (`int ngroups`, as
+    sub-PUs (six groups): an entry point of job groups (`int ngroups`, as
     here) gets the six groups in one launch; the older one (commit 760a03e
     and before: one group a launch, the arguments one by one) six launches,
     timed as one call."""
@@ -1238,6 +1318,40 @@ def versus_refine(torch, KN, other: str) -> None:
                f"{'1 launch' if grouped else '6 launches'})", lambda: other_fir(jobs, theirs),
                lambda: RK.dmvr_final_pack(l0, l1, cargs, **kw), theirs, (l0, l1, cargs), sums)
     versus_sums(sums, "luma blocks + dmvr_final_pack")
+
+
+def versus_transform(torch, KN, other: str) -> None:
+    """vtm_inv_transform against the build of another transform.cu in
+    `other` (with its common.cuh), in turns, on 8-bit DCT2 blocks of
+    numpy-seeded int16-range coefficients: the sharded reconstruction's
+    lane slices of 32x32 blocks (4,080 on 1 x 1 lanes, 1,020 on 2 x 2),
+    then the square sizes 8 to 64, each a batch the size of a 1920x1080
+    plane."""
+    import numpy as np
+
+    from vtm_tpu_torch.ops import transform as TR
+
+    _, (fn, _, _) = other_entries(KN, other, "transform.cu",
+                                  ("vtm_inv_transform", "vtm_inv_transform_s8",
+                                   "vtm_recon_sse"))
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(17)
+    cases = [(f"lane 0 of sharded_recon_step on {lanes} lanes", nb, 32)
+             for lanes, nb in (("1 x 1", 4080), ("2 x 2", 1020))]
+    cases += [("1080p plane", 1920 * 1080 // (n * n), n) for n in (8, 16, 32, 64)]
+    sums = {}
+    for label, nb, n in cases:
+        c = torch.from_numpy(rng.integers(-32768, 32768, size=(nb, n, n))
+                             .astype(np.int32)).to(dev)
+        tv = TR._tmat(TR.DCT2, n, dev)
+        theirs = torch.full_like(c, -1)
+        versus_row(torch, other, "vtm_inv_transform", f"{label}, {nb} {n}x{n} DCT2 blocks",
+                   lambda: fn(c.data_ptr(), theirs.data_ptr(), tv.data_ptr(), tv.data_ptr(),
+                              nb, n, n, 8, stream),
+                   lambda: TR.inv_transform_batch_cuda(c, 8), theirs, c,
+                   sums if label == "1080p plane" else {}, ops=nb * n * n * 2 * n)
+    versus_sums(sums, "DCT2 8-64 on 1080p planes")
 
 
 def versus_deblock(torch, KN, other: str) -> None:
@@ -1392,14 +1506,16 @@ def delta_shards(torch, pic: dict, dev, lanes: int = 8):
     return ver + hor, xs, bd
 
 
-def launch_floor(torch, name: str, label: str, fn) -> float:
+def launch_floor(torch, chk: KernelCheck, name: str, label: str, fn) -> float:
     """Device ms of one launch: of a kernel on one tile, the floor any of
     its launches pays, whatever its size; of a plain copy of a shard, the
-    floor of any launch that moves the shard's plane in and out."""
+    floor of any launch that moves the shard's plane in and out.  Kept in
+    chk.floors[label]."""
     ms, paced = device_ms(torch, fn)
     if paced:
         raise AssertionError(f"launch floor {name} {paced}")
     print(f"launch floor {name}: {label}, {ms:.6f} ms device", flush=True)
+    chk.floors[label] = ms
     return ms
 
 
@@ -1429,15 +1545,16 @@ def check_shard_entries(torch, chk: KernelCheck, pic: dict, dev, lanes: int = 8)
                     ins=(e, maps), ops=10 * e.numel(), shape="shard")
     # floors: an empty kernel, a copy of a VER and of a HOR shard's plane,
     # and one tile of the delta (4 x 128 samples)
-    launch_floor(torch, "empty kernel", "torch.cuda._sleep(0)", lambda: torch.cuda._sleep(0))
+    launch_floor(torch, chk, "empty kernel", "torch.cuda._sleep(0)",
+                 lambda: torch.cuda._sleep(0))
     for label, e, _ in (shards[0], shards[lanes]):
         dst = torch.empty_like(e)
-        launch_floor(torch, "shard copy", f"torch copy_ of {label}'s plane "
+        launch_floor(torch, chk, "shard copy", f"torch copy_ of {label}'s plane "
                      f"{tuple(e.shape)} int32, {2 * e.numel() * 4} bytes",
                      lambda: dst.copy_(e))
     e, maps = shards[0][1:]
     tile = (e[:4, :128].contiguous(), [m[:1, :28].contiguous() for m in maps])
-    launch_floor(torch, "vtm_deblock_luma_ver_delta", "one 4 x 128 tile of VER shard 0",
+    launch_floor(torch, chk, "vtm_deblock_luma_ver_delta", "one 4 x 128 tile of VER shard 0",
                  lambda: DK.luma_ver_delta_cuda(tile[0], *tile[1], bd))
     if alf is not None:
         # shard 1 after VER, with 4-column halos and 4 edge rows: the
@@ -1452,8 +1569,24 @@ def check_shard_entries(torch, chk: KernelCheck, pic: dict, dev, lanes: int = 8)
                     shape="shard")
         tile = p4[:40, :136].contiguous()
         small = [r[:18] for r in rows[:4]] + [r[:8] for r in rows[4:]]
-        launch_floor(torch, "vtm_alf_classify", "one tile, 8 x 32 4x4 blocks",
+        launch_floor(torch, chk, "vtm_alf_classify", "one tile, 8 x 32 4x4 blocks",
                      lambda: AK.classify_picture_cuda(tile, *small, bit_depth=bd))
+        # its luma filter, on the shard's classes (the sharded chain's
+        # vtm_alf_filter launch)
+        cls, tr = AK.classify_picture_cuda(p4, *rows, bit_depth=bd)
+        ctu = PS._split_cols(PS._t(alf[2]), lanes, [dev] * lanes)[1]
+        cperm, lperm = (PS._t(a).to(dev) for a in alf[:2])
+        gather = (ctu.long(), cls.long(), tr.long())
+        coef, clip = cperm[gather], lperm[gather]
+        o_rows, near = (PS._t(a).to(dev) for a in alf[3:5])
+        chk.compare("vtm_alf_filter",
+                    f"1080p POC 0 shard 1 of {lanes}, {p4.shape[1]} columns, luma",
+                    lambda: AK.alf_filter_cuda(p4, coef, clip, o_rows, near,
+                                               taps=AK.LUMA_TAPS, bit_depth=bd),
+                    lambda: AK.alf_filter_plain(p4, coef, clip, o_rows, near,
+                                                taps=AK.LUMA_TAPS, bit_depth=bd),
+                    timed=True, ins=(p4, coef, clip, o_rows, near),
+                    ops=48 * (p4.shape[0] - 8) * (p4.shape[1] - 8), shape="shard")
     if sao is not None:
         xs = PS._split_cols(PS._t(x), lanes, [dev] * lanes)
         parts = [PS._split_cols(PS._t(m), lanes, [dev] * lanes) for m in (sao[0], sao[1], sao[3])]
@@ -1476,6 +1609,95 @@ def check_shard_entries(torch, chk: KernelCheck, pic: dict, dev, lanes: int = 8)
                 ins=(resid, pred, orig), ops=6 * resid.numel())
 
 
+def mesh_inputs(torch, dev) -> dict:
+    """The inputs of phase 6's sharded MC and reconstruction stages (their
+    shard-shape kernel cases in phase 3 take them too): the decodes that
+    capture ra_full_small208_qp32 (`small_cap`) and the flagship RA stream's
+    MC slice (`ra`), a 1080p-sized seeded luma MC batch (`seeded`, with its
+    plain result), and two 1080p luma planes of 32x32 blocks for the
+    reconstruction step (`coeff`, `pred`, `orig` as numpy (2, 2040, 32,
+    32), with the plain recon and SSE they are held to)."""
+    import numpy as np
+
+    from vtm_tpu_torch import testing as T
+    from vtm_tpu_torch.ops import mc_kernel as MK
+    from vtm_tpu_torch.ops import transform as TR
+    from vtm_tpu_torch.parallel import mesh as MS
+    from vtm_tpu_torch.parallel import multichip as MCH
+
+    small_cap = MCH.capture_decode(MCH.STREAM, "cuda")
+    ra = MCH.capture_decode(RA_STREAM, "cuda")["mc"]
+    rng = np.random.default_rng(29)
+    refs = np.stack([T.plane(rng, 1080, 1920, 8) for _ in range(4)])
+    args = (refs,) + T.mc_tiles_case(rng, refs, 129_600, True, 8, cover=True)
+    planes = [torch.from_numpy(p).to(dev) for p in refs]
+    jobs = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in args[1:]]
+    seeded = dict(args=args, taps=8, tile=4, bd=8,
+                  out=MK.mc_tiles_plain(planes, *jobs, taps=8, tile=4, bd=8).cpu().numpy())
+    shape = (2, 2040, 32, 32)
+    coeff = rng.integers(-2048, 2048, size=shape).astype(np.int32)
+    pred = rng.integers(0, 256, size=shape).astype(np.int32)
+    orig = np.clip(pred + rng.integers(-20, 21, size=shape), 0, 255).astype(np.int32)
+    c, p, o = (torch.from_numpy(a).to(dev) for a in (coeff, pred, orig))
+    resid = TR.inv_transform_batch_plain(c.reshape(-1, 32, 32), 8).reshape(shape)
+    want_recon, want_sse = MS.recon_sse_plain(resid, p, o)
+    torch.cuda.synchronize()
+    return dict(small_cap=small_cap, ra=ra, seeded=seeded, coeff=coeff, pred=pred,
+                orig=orig, want_recon=want_recon.cpu(),
+                want_sse=want_sse.to(torch.float32).cpu())
+
+
+def check_mesh_batches(torch, chk: KernelCheck, mesh_in: dict, dev):
+    """The multi-device path's MC and reconstruction kernels at the shapes
+    its lanes launch them (shape "shard"), timed: vtm_mc_tiles on lane 0's
+    share of each sharded MC batch (pic_shard.split_mc_jobs, as
+    sharded_mc_tiles splits it: the 1080p-sized seeded batch and the RA
+    slice on 1 and 4 lanes, the ra_full_small208_qp32 batch on the 1, 2
+    and 8 lanes of its dry runs), and vtm_inv_transform and vtm_recon_sse on
+    lane 0's slice of the (2, 2040, 32, 32) reconstruction step on 1 x 1
+    lanes (4,080 blocks) and on 2 x 2 lanes (1,020 blocks); each case
+    weighed as often as one run of its stage launches it."""
+    from vtm_tpu_torch.ops import mc_kernel as MK
+    from vtm_tpu_torch.ops import transform as TR
+    from vtm_tpu_torch.parallel import mesh as MS
+    from vtm_tpu_torch.parallel import multichip as MCH
+    from vtm_tpu_torch.parallel import pic_shard as PS
+
+    for label, mc, lane_counts in (("1080p seeded", mesh_in["seeded"], (1, 4)),
+                                   (f"{RA_STREAM} slice", mesh_in["ra"], (1, 4)),
+                                   (MCH.STREAM, mesh_in["small_cap"]["mc"], (1, 2, 8))):
+        kw = dict(taps=mc["taps"], tile=mc["tile"], bd=mc["bd"])
+        tile, taps = kw["tile"], kw["taps"]
+        for n in lane_counts:
+            refs, shares = PS.split_mc_jobs(mc, n)
+            planes = [p.to(dev) for p in refs]
+            jobs = [a.to(dev).contiguous() for a in shares[0]]
+            nb = jobs[0].shape[0]
+            read = mc_ref_bytes(planes, jobs, taps, tile)
+            chk.compare("vtm_mc_tiles", f"{label}, lane 0 of {n}: {nb} luma tiles, "
+                        f"{read} reference bytes reachable of {nbytes(planes)}",
+                        lambda: MK.mc_tiles_cuda(planes, *jobs, **kw),
+                        lambda: MK.mc_tiles_plain(planes, *jobs, **kw), timed=True,
+                        ins=(read, jobs), ops=mc_ops(nb, taps, tile),
+                        shape="shard", weight=n)
+    c, p, o = (torch.from_numpy(mesh_in[k]).to(dev) for k in ("coeff", "pred", "orig"))
+    for lanes, n, sl in (("1 x 1", 1, (slice(None), slice(None))),
+                         ("2 x 2", 4, (slice(0, 1), slice(0, 1020)))):
+        cl, pl, ol = (a[sl].contiguous() for a in (c, p, o))
+        blocks = cl.reshape(-1, 32, 32)
+        nb = blocks.shape[0]
+        tag = f"lane 0 of sharded_recon_step on {lanes} lanes, {nb} 32x32 blocks"
+        resid = chk.compare("vtm_inv_transform", tag,
+                            lambda: TR.inv_transform_batch_cuda(blocks, 8),
+                            lambda: TR.inv_transform_batch_plain(blocks, 8), timed=True,
+                            ins=blocks, ops=nb * 32 * 32 * 64, shape="shard", weight=n)
+        resid = resid.reshape(cl.shape)
+        chk.compare("vtm_recon_sse", tag,
+                    lambda: MS.recon_sse_cuda(resid, pl, ol),
+                    lambda: MS.recon_sse_plain(resid, pl, ol), timed=True,
+                    ins=(resid, pl, ol), ops=6 * resid.numel(), shape="shard", weight=n)
+
+
 def spread(secs) -> str:
     """Median, least and most of a stage's host seconds."""
     s = sorted(secs)
@@ -1496,61 +1718,47 @@ def show_dryrun(rep: dict, one: dict) -> None:
             statistics.median(one[k]) / (one[pics] if pics else 1))
         parts.append(f"{k[:-2]} {spread(rep[k])}, {ratio:.4f}x one lane"
                      + (" per picture" if pics else ""))
-    what = {k: v for k, v in rep.items() if k not in per and k != "launches"}
+    what = {k: v for k, v in rep.items()
+            if k not in per and k not in ("launches", "stage_launches")}
     print(f"dryrun_multichip {rep['stream']} {what}: " + "; ".join(parts)
           + f"; launches of one run of each stage {rep['launches']}", flush=True)
 
 
-def mesh_path(torch, KN, hd_cap: dict, dev) -> dict:
+def mesh_path(torch, KN, hd_cap: dict, mesh_in: dict) -> dict:
     """The multi-device main path on lanes sharing the card; returns its
-    launch counts, those of one run of each stage.  Its inputs come first:
-    the decodes that capture the small208 and RA streams, the seeded MC
-    batch, and the plain results the MC and recon stages are held to.  Then
-    the counts are zeroed, and only the sharded calls and their one-lane
-    runs follow.  Every lane is held to its picture's single-lane result;
-    every stage runs REPEATS times (multichip.timed_runs, which asserts that
-    each run launched what the first did), and its host seconds (inputs
-    uploaded, result fetched) are printed as median, min and max beside the
-    one-lane run's.  The runs exist for the seconds' spread, so one run of
-    each stage is what the path launches; all launches of the phase must
-    be REPEATS times those."""
+    launch counts, those of one run of each stage, by the shape its lanes
+    work on: {"shard": the width-sharded luma chain, the sharded MC and the
+    sharded reconstruction; "picture": the gop-batched full chain, whose
+    lanes take whole pictures}.  Its inputs (`mesh_in`: the decodes that
+    capture the small208 and RA streams, the seeded MC batch, the
+    reconstruction step's blocks, and the plain results the MC and recon
+    stages are held to) were made before; the counts are zeroed here, and
+    only the sharded calls and their one-lane runs follow.  Every lane is
+    held to its picture's single-lane result; every stage runs REPEATS
+    times (multichip.timed_runs, which asserts that each run launched what
+    the first did), and its host seconds (inputs uploaded, result fetched)
+    are printed as median, min and max beside the one-lane run's.  The
+    runs exist for the seconds' spread, so one run of each stage is what
+    the path launches; all launches of the phase must be REPEATS times
+    those."""
     import numpy as np
 
-    from vtm_tpu_torch import testing as T
-    from vtm_tpu_torch.ops import mc_kernel as MK
-    from vtm_tpu_torch.ops import transform as TR
     from vtm_tpu_torch.parallel import mesh as MS
     from vtm_tpu_torch.parallel import multichip as MCH
     from vtm_tpu_torch.parallel import pic_shard as PS
 
-    # ---- inputs, and the results they are held to ----
-    small_cap = MCH.capture_decode(MCH.STREAM, "cuda")
-    ra = MCH.capture_decode(RA_STREAM, "cuda")["mc"]
-    rng = np.random.default_rng(29)
-    refs = np.stack([T.plane(rng, 1080, 1920, 8) for _ in range(4)])
-    args = (refs,) + T.mc_tiles_case(rng, refs, 129_600, True, 8, cover=True)
-    planes = [torch.from_numpy(p).to(dev) for p in refs]
-    jobs = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in args[1:]]
-    seeded = dict(args=args, taps=8, tile=4, bd=8,
-                  out=MK.mc_tiles_plain(planes, *jobs, taps=8, tile=4, bd=8).cpu().numpy())
-    # two 1080p luma planes of 32x32 blocks for the reconstruction step
-    shape = (2, 2040, 32, 32)
-    coeff = rng.integers(-2048, 2048, size=shape).astype(np.int32)
-    pred = rng.integers(0, 256, size=shape).astype(np.int32)
-    orig = np.clip(pred + rng.integers(-20, 21, size=shape), 0, 255).astype(np.int32)
-    c, p, o = (torch.from_numpy(a).to(dev) for a in (coeff, pred, orig))
-    resid = TR.inv_transform_batch_plain(c.reshape(-1, 32, 32), 8).reshape(shape)
-    want_recon, want_sse = MS.recon_sse_plain(resid, p, o)
-    want_recon, want_sse = want_recon.cpu(), want_sse.to(torch.float32).cpu()
-    torch.cuda.synchronize()
+    small_cap, ra, seeded = (mesh_in[k] for k in ("small_cap", "ra", "seeded"))
+    coeff, pred, orig = (mesh_in[k] for k in ("coeff", "pred", "orig"))
+    want_recon, want_sse = mesh_in["want_recon"], mesh_in["want_sse"]
+    shape = coeff.shape
 
     # ---- the path: sharded calls and their one-lane runs alone ----
     KN.reset_launch_counts()
-    counts = dict.fromkeys(KN.KERNELS, 0)
+    counts = {s: dict.fromkeys(KN.KERNELS, 0) for s in ("shard", "picture")}
 
-    def count(launches: dict) -> dict:
+    def count(launches: dict, at: str = "shard") -> dict:
         for k, v in launches.items():
-            counts[k] += v
+            counts[at][k] += v
         return launches
 
     for stream, cap, cases in ((HD_STREAM, hd_cap, ((1, 1), (4, 2), (8, 8))),
@@ -1559,7 +1767,8 @@ def mesh_path(torch, KN, hd_cap: dict, dev) -> dict:
         for n, tile in cases:
             rep = MCH.dryrun_multichip(n, device="cuda", stream=stream, tile=tile,
                                        cap=cap, repeats=REPEATS)
-            count(rep["launches"])
+            for stage, launches in rep["stage_launches"].items():
+                count(launches, "picture" if stage == "full_chain_s" else "shard")
             one = one or rep
             show_dryrun(rep, one)
     # the MC job axis over 4 lanes: a 1080p-sized seeded batch, a slice batch
@@ -1593,7 +1802,7 @@ def mesh_path(torch, KN, hd_cap: dict, dev) -> dict:
               f"{statistics.median(secs) / statistics.median(one):.4f}x one lane; "
               f"launches of one run {count(runs)}", flush=True)
     total = KN.launch_counts()
-    if any(total[k] != REPEATS * counts[k] for k in total):
+    if any(total[k] != REPEATS * (counts["shard"][k] + counts["picture"][k]) for k in total):
         raise AssertionError(f"the phase launched {total}, not {REPEATS} x one run "
                              f"of each stage {counts}")
     print(f"launches, all {REPEATS} runs of each stage: {total}", flush=True)
@@ -1709,6 +1918,80 @@ def encode_hd(torch, KN, Decoder, IntraEncoder):
     return {k: after[k] - before[k] for k in after}
 
 
+def redesign_order(chk: KernelCheck, launches: dict) -> list:
+    """[(saving ms, kernel, parts)], largest first: per kernel, the sum over
+    shapes of its launches there (launches: {kernel: {shape: n}}) x (device
+    ms - bound ms) per launch of its timed cases at that shape."""
+    order = []
+    for name, by_shape in launches.items():
+        gap, parts = 0.0, []
+        for shape, n in by_shape.items():
+            if n:
+                per, bound = chk.per_launch(name, shape)
+                gap += n * (per - bound)
+                parts.append(f"{n} x ({per:.6f} - {bound:.6f}) ms at {shape} shape")
+        order.append((gap, name, parts))
+    return sorted(order, reverse=True)
+
+
+def sao_ext_reach(chk: KernelCheck) -> None:
+    """The extended-plane SAO's shard launches beside a copy of a VER
+    shard's plane timed in the same run: half of a launch's bound would
+    need a launch within twice that bound."""
+    cases = chk.rows["vtm_sao_apply_ext"]["cases"]
+    ms = [m for _, m, _ in cases]
+    bound = max(b for _, _, b in cases)
+    copy = next(v for k, v in chk.floors.items() if k.startswith("torch copy_ of VER"))
+    print(f"vtm_sao_apply_ext at shard shape: {min(ms):.6f}-{max(ms):.6f} ms a launch, "
+          f"bound at most {bound:.6f} ms, so half of it needs at most {2 * bound:.6f} ms; "
+          f"a torch copy_ of a VER shard's plane (fewer bytes than a launch moves) takes "
+          f"{copy:.6f} ms", flush=True)
+
+
+def decode_golden(torch, KN, Decoder) -> None:
+    """Every golden stream of testdata/ decoded on the card: each picture
+    hash-exact, and a stream whose pictures are not all hashed equal to the
+    .dec.yuv (else .rec.yuv) beside it; prints each stream's launches."""
+    import io
+
+    from vtm_tpu_torch.utils import yuv_io
+
+    names = sorted(f[:-4] for f in os.listdir(TESTDATA) if f.endswith(".bit"))
+    for name in names:
+        before = KN.launch_counts()
+        t0 = time.perf_counter()
+        dec = Decoder(device="cuda")
+        pics = dec.decode_stream(read_stream(name))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = KN.launch_counts()
+        if not pics:
+            raise AssertionError(f"golden {name}: no picture decoded")
+        bad = [hr.poc for hr in dec.hash_results if not hr.ok]
+        if bad:
+            raise AssertionError(f"golden {name}: hash mismatch at POC {bad}")
+        how = f"{len(dec.hash_results)} hashes OK"
+        if len(dec.hash_results) < len(pics):
+            sps = dec.psm.sps[pics[0].sps_id]
+            h, w = pics[0].planes[0].shape
+            fmt = yuv_io.YuvFormat(w, h, sps.chroma_format, sps.bit_depth)
+            buf = io.BytesIO()
+            for p in pics:
+                yuv_io.write_frame(buf, p.planes, fmt)
+            ref = next(os.path.join(TESTDATA, f"{name}{ext}")
+                       for ext in (".dec.yuv", ".rec.yuv")
+                       if os.path.exists(os.path.join(TESTDATA, f"{name}{ext}")))
+            with open(ref, "rb") as f:
+                if buf.getvalue() != f.read():
+                    raise AssertionError(f"golden {name}: output != {os.path.basename(ref)}")
+            how += f", output equal to {os.path.basename(ref)}"
+        launched = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+        print(f"golden {name}: {len(pics)} pictures, {how}, {dt:.4f} s on cuda; "
+              f"launches {launched}", flush=True)
+    print(f"golden streams: all {len(names)} of testdata decoded exactly on the card",
+          flush=True)
+
+
 def decode(torch, Decoder, name: str, chain_events: list) -> int:
     """Decode one stream on the card, check every picture hash, and print
     seconds per picture and the chain's summed device time."""
@@ -1802,6 +2085,8 @@ def main() -> int:
               10, "10-bit 1920x1080 seeded", timed=False)
     check_transforms(torch, chk, dev)
     check_shard_entries(torch, chk, pic0, dev)
+    mesh_in = mesh_inputs(torch, dev)
+    check_mesh_batches(torch, chk, mesh_in, dev)
 
     # 4. the decode main path, with the launch counts of this run only
     chain_events = []
@@ -1840,6 +2125,7 @@ def main() -> int:
         raise AssertionError("SAO or ALF did not run on the 1080p stream")
     if any(ra[k] < 1 for k in INTER_KERNELS):
         raise AssertionError(f"an inter kernel did not run on {RA_STREAM}")
+    decode_golden(torch, KN, Decoder)
 
     # 5. the encode main path, with the launch counts of this run only
     KN.reset_launch_counts()
@@ -1858,9 +2144,11 @@ def main() -> int:
         print(f"{k}: not launched by the encoder: {why}", flush=True)
 
     # 6. the multi-device main path, with the launch counts of this run only
-    mesh_counts = mesh_path(torch, KN, hd_cap, dev)
-    print(f"launches, multi-device main path (one run of each stage): {mesh_counts}",
-          flush=True)
+    mesh_by = mesh_path(torch, KN, hd_cap, mesh_in)
+    mesh_counts = {k: mesh_by["shard"][k] + mesh_by["picture"][k] for k in mesh_by["shard"]}
+    print(f"launches, multi-device main path (one run of each stage): {mesh_counts}; "
+          f"on shards {mesh_by['shard']}; on whole pictures (the gop-batched chain) "
+          f"{mesh_by['picture']}", flush=True)
     idle = [k for k in MESH_KERNELS if mesh_counts[k] == 0]
     if idle:
         raise AssertionError(f"the multi-device path did not launch {idle}")
@@ -1893,32 +2181,15 @@ def main() -> int:
                             call_ms=row["call_ms"], plain_ms=row["plain_ms"],
                             bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=row["library_ms"]))
-    # what a redesign of each kernel could save on the main paths at most:
-    # each path's launches x (device ms - bound ms) per launch of the timed
-    # calls at that path's shape (the decode and encode paths: 1080p; the
-    # multi-device path: shards), or at the other shape where the kernel was
-    # timed at one only
-    order = []
-    for k in kernels:
-        name = k["name"]
-        if not chk.rows[name]["launches"]:
-            continue
-        by_used = {}  # the shape timed -> launches weighed at it
-        for shape, n in (("picture", dec_counts[name] + enc_counts[name]),
-                         ("shard", mesh_counts[name])):
-            if n:
-                used = chk.per_launch(name, shape)[2]
-                by_used[used] = by_used.get(used, 0) + n
-        gap, parts = 0.0, []
-        for used, n in by_used.items():
-            per, bound, _ = chk.per_launch(name, used)
-            gap += n * (per - bound)
-            parts.append(f"{n} x ({per:.6f} - {bound:.6f}) ms at {used} shape")
-        order.append((gap, name, parts))
-    print("redesign order, main-path launches x (device ms - bound ms) per launch at "
-          "the path's shape: " + ", ".join(f"{name} {gap:.6f} ms ({' + '.join(parts)})"
-                                           for gap, name, parts in sorted(order, reverse=True)),
-          flush=True)
+    # what a redesign of each kernel could save on the main paths at most,
+    # each launch weighed at the shape it runs at
+    launches = {k: {"picture": dec_counts[k] + enc_counts[k] + mesh_by["picture"][k],
+                    "shard": mesh_by["shard"][k]} for k in dec_counts}
+    order = redesign_order(chk, launches)
+    print("redesign order, main-path launches x (device ms - bound ms) per launch at the "
+          "shape each runs at: " + ", ".join(f"{name} {gap:.6f} ms ({' + '.join(parts)})"
+                                            for gap, name, parts in order), flush=True)
+    sao_ext_reach(chk)
     torch.cuda.synchronize()
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,10 @@ Each vtm_tpu_torch/csrc/*.cu (all of them by default) is rewritten into C++ for 
 stub `cuda_runtime.h` beside this file: `kernel<<<grid, block, smem,
 stream>>>(args)` becomes `emu_launch(kernel, grid, block, smem, args)`,
 which runs every block in turn with one std::thread per CUDA thread and a
-std::barrier for __syncthreads().  g++ (C++20, no FP contraction) links
+std::barrier for __syncthreads(); `extern __shared__ T name[];` becomes a
+pointer of that type to one global buffer; inline PTX (`asm volatile`) is
+dropped, so a kernel that uses it gives wrong results here and is not
+tested so.  g++ (C++20, no FP contraction) links
 the result into OUT_DIR/libvtm_emu.so with the same C entry points as the
 real library; `load` returns it with their ctypes argument types, to call
 on CPU tensors' data_ptr()s and hold against the plain torch versions.
@@ -47,7 +50,11 @@ def translate(src: str) -> str:
     src = re.sub(r"(\w+(?:<[^<>]*>)?)\s*<<<(.*?)>>>\s*\(",
                  lambda m: f"emu_launch({m.group(1)}, {_launch_config(m.group(2))}, ",
                  src, flags=re.S)
-    return src.replace("extern __shared__ int sm[];", "")
+    # the dynamic shared buffer, under each kernel's own name and type
+    src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];",
+                 r"\1* const \2 = reinterpret_cast<\1*>(emu_sm_buf);", src)
+    # inline PTX has no host meaning: a kernel that uses it is not run here
+    return src.replace("asm volatile(", "emu_asm(")
 
 
 def build(out_dir: str, names=None) -> str:

@@ -5,8 +5,8 @@
 // threadIdx / blockIdx, and __syncthreads() is a std::barrier over them.
 // Blocks never overlap in time, so shared memory can be single copies: a
 // static __shared__ array becomes a function-level static, and the dynamic
-// one (`extern __shared__ int sm[]`, which build.py removes) one global
-// buffer.
+// one (`extern __shared__ T name[]`, which build.py turns into a pointer to
+// it) one global buffer.
 // Warps (one-dimensional blocks): each aligned group of 32 threads has a
 // std::barrier of its own for __syncwarp(); a shuffle writes the lane's value
 // into its exchange slot, waits on the warp's barrier, reads the source
@@ -39,6 +39,7 @@
 #define __align__(n) __attribute__((aligned(n)))
 struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct alignas(16) int4 { int x, y, z, w; };
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 struct alignas(8) int2 { int x, y; };
 struct uint3 { unsigned x, y, z; };
 inline thread_local uint3 threadIdx;
@@ -62,6 +63,15 @@ inline int __shfl_xor_sync(unsigned, int v, int mask, int = 32) {
 }
 inline int __shfl_sync(unsigned, int v, int src, int width = 32) {
   return emu_shfl(v, (threadIdx.x & 31 & ~(width - 1)) + src % width);
+}
+inline long long emu_lane_slot64[1024];
+inline long long __shfl_down_sync(unsigned, long long v, int delta) {
+  const unsigned lane = threadIdx.x & 31;
+  emu_lane_slot64[threadIdx.x] = v;
+  __syncwarp();
+  const long long r = lane + delta < 32 ? emu_lane_slot64[threadIdx.x + delta] : v;
+  __syncwarp();
+  return r;
 }
 inline int __reduce_min_sync(unsigned, int v) {
   // every lane of the warp takes part (full mask)
@@ -95,8 +105,11 @@ inline int __float2int_rz(float f) { return (int)f; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __int2float_rn(int i) { return (float)i; }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_RELAXED); }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
+}
+#define emu_asm(...) ((void)0)
 alignas(16) inline int emu_sm_buf[1 << 16];
-#define sm emu_sm_buf
 template <class K, class... A>
 void emu_launch(K kernel, dim3 grid, dim3 block, size_t, A... args) {
   blockDim = block; gridDim = grid;

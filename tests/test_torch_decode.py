@@ -2,7 +2,8 @@
 
 (a) the port's filter chain on real pictures' captured inputs equals the
     reference chain's packed output bit for bit;
-(b) golden all-intra streams decode hash-exact through the port;
+(b) golden all-intra streams decode hash-exact through the port, every
+    picture's luma deblocking maps with disjoint filter extents;
 (c) the 1080p stream too (slow);
 (d) the port decodes with jax unimportable and never loads it;
 (e) a missing CUDA device raises instead of giving way.
@@ -24,6 +25,8 @@ from vtm_tpu_torch.decoder import app
 from vtm_tpu_torch.decoder.declib import Decoder, Picture
 from vtm_tpu_torch.ops import filter_chain as FC
 
+import _deblock_maps as DM
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TD = os.path.join(ROOT, "testdata")
 
@@ -34,11 +37,15 @@ def read(name):
 
 
 def decode_port(name, device="cpu"):
+    """Decode hash-exact; the luma deblocking maps of every picture meet the
+    kernels' precondition, disjoint filter extents (tests/_deblock_maps.py)."""
     dec = Decoder(device=device)
-    pics = dec.decode_stream(read(name))
+    with DM.recorded_deblock_maps() as maps:
+        pics = dec.decode_stream(read(name))
     assert pics and len(dec.hash_results) == len(pics)
     for hr in dec.hash_results:
         assert hr.ok, f"{name}: hash mismatch at POC {hr.poc}"
+    DM.assert_luma_extents_disjoint(maps, name)
     return dec, pics
 
 

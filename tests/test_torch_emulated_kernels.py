@@ -1,4 +1,4 @@
-"""The SATD, RMD, deblocking, MC, FIR and ALF-filter CUDA sources, built for
+"""The SATD, RMD, deblocking, MC, FIR, BDOF, ALF and transform CUDA sources, built for
 the CPU by the test-support emulation of tests/_emu, against their plain
 torch versions.
 
@@ -18,8 +18,15 @@ memory from any alignment), the RMD reduction's warp reductions (crafted
 ties), the ALF filter tiles (a template per component, halo rows and
 columns, out-of-halo row offsets read from the plane), the ALF classifier's
 tiles (a staged band of rows, gradients once, out-of-band row indices, the
-int32 wrap) and the luma deblocking delta tiles (every element written, halo
-deltas) through their wrappers.  Tolerance 0.
+int32 wrap), the luma deblocking delta tiles (every element written, halo
+deltas) through their wrappers, the BDOF entry (every sub-block size,
+ragged counts, extreme predictions, unaligned pointers), and the inverse
+transform's register-tiled CTAs (square blocks in groups, a persistent CTA
+walking several groups, ragged last groups) beside its general kernel
+(every other shape, and unaligned pointers), with the reconstruction
+epilogue.  The deblocking kernels' precondition, disjoint luma filter
+extents, is checked in linear time (tests/_deblock_maps.py), held to the
+pairwise check here.  Tolerance 0.
 """
 
 import ctypes
@@ -40,6 +47,10 @@ from vtm_tpu_torch.ops import deblock_kernel as DK
 from vtm_tpu_torch.ops import mc_kernel as MK
 from vtm_tpu_torch.ops import rdcost as RC
 from vtm_tpu_torch.ops import refine_kernel as RK
+from vtm_tpu_torch.ops import transform as TR
+from vtm_tpu_torch.parallel import mesh as MS
+
+import _deblock_maps as DM
 
 PIC_H, PIC_W = 80, 96
 CLASSES = intra_class_list(EncoderConfig(width=PIC_W, height=PIC_H))
@@ -53,7 +64,7 @@ def lib(tmp_path_factory):
 
     return build.load(str(tmp_path_factory.mktemp("emu")),
                       ["rdcost.cu", "rmd.cu", "deblock.cu", "mc.cu", "alf.cu",
-                       "refine.cu"])
+                       "refine.cu", "transform.cu"])
 
 
 def test_satd_batch(lib):
@@ -246,19 +257,6 @@ def _strong_end_edges(rng, pad: np.ndarray, maps: list, bd: int) -> None:
         max_p[0:2, c], max_q[0:2, c], no_p[0:2, c], no_q[0:2, c] = 7, 7, False, False
 
 
-def _extents_disjoint(maps: list) -> bool:
-    """Whether the samples the active luma edges of each line may write
-    (x - max_p .. x + max_q - 1 for the edge at x = 4 c) are disjoint: the
-    kernels' precondition (deblock.cu), which VVC's max_p / max_q rules
-    guarantee."""
-    act, max_p, max_q = (np.asarray(maps[i], dtype=np.int64) for i in (0, 3, 4))
-    x = 4 * np.arange(act.shape[1])
-    end = np.where(act > 0, x + max_q, -1 << 20)[:, :, None]   # past the last sample
-    start = np.where(act > 0, x - max_p, 1 << 20)[:, None, :]
-    later = x[:, None] < x[None, :]
-    return not (later & (end > start)).any()
-
-
 @pytest.mark.parametrize("bd", [8, 10])
 def test_deblock_luma_ver_delta(lib, emu_launch, bd):
     """The delta form over an 8-column-extended shard, against
@@ -274,10 +272,10 @@ def test_deblock_luma_ver_delta(lib, emu_launch, bd):
         raw = T.plane(rng, h, w + 16, bd)
         maps = list(T.deblock_maps(rng, h, w, bd, False)[:7])
         _strong_end_edges(rng, raw, maps, bd)
-        assert _extents_disjoint(maps)
+        assert DM.extents_disjoint(maps) and DM.extents_disjoint_pairs(maps)
         bad = [m.copy() for m in maps]  # two long filters 4 samples apart overlap
         bad[0][0, 0:2], bad[4][0, 0], bad[3][0, 1] = True, 7, 7
-        assert not _extents_disjoint(bad)
+        assert not DM.extents_disjoint(bad) and not DM.extents_disjoint_pairs(bad)
         pad = _misaligned(raw, aligned)
         maps = [torch.from_numpy(m) for m in maps]
         want = DK.luma_ver_delta_plain(pad, *maps, bd)
@@ -289,6 +287,24 @@ def test_deblock_luma_ver_delta(lib, emu_launch, bd):
                                               *(m.data_ptr() for m in maps), bd,
                                               None) == 0
         np.testing.assert_array_equal(out.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_extents_disjoint_linear_equals_pairs(seed):
+    """The linear precondition check agrees with the pairwise one on
+    seeded maps of every density, with and without overlapping extents."""
+    rng = np.random.default_rng(seed)
+    seen = set()
+    for density in (0.0, 0.05, 0.2, 0.5, 1.0):
+        for _ in range(25):
+            h4, w4 = rng.integers(1, 9), rng.integers(1, 40)
+            act = rng.random((h4, w4)) < density
+            max_p, max_q = (rng.integers(0, 8, (h4, w4)) for _ in range(2))
+            maps = [act, None, None, max_p, max_q]
+            got = DM.extents_disjoint(maps)
+            assert got == DM.extents_disjoint_pairs(maps)
+            seen.add(got)
+    assert seen == {True, False}
 
 
 def _misaligned(a: np.ndarray, aligned: bool = False) -> torch.Tensor:
@@ -554,3 +570,137 @@ def test_dmvr_final_pack_one_launch(fir_launches, lib, bd):
         dims = (ctypes.c_int * (7 * count))(*([n, 11, 11, 8, 8, taps, 0] * count))
         assert lib.vtm_fir_blocks(count, ctypes.addressof(ptrs), ctypes.addressof(dims), bd,
                                   out.data_ptr(), None) != 0
+
+
+def _bdof_counts(w: int, h: int) -> tuple:
+    """Sub-block counts: one, and counts around multiples of the sub-blocks
+    that 256 threads of 4 samples each would cover (a group less one, a
+    group and a part of the next, three groups and one)."""
+    group = 256 // (w * h // 4)
+    return tuple(n for n in (1, group - 1, group + group // 2 + 1, 3 * group + 1) if n)
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("w,h", [(8, 8), (16, 8), (8, 16), (16, 16)])
+def test_bdof_blend(lib, emu_launch, w, h, bd):
+    """vtm_bdof_blend against bdof_blend_batch_plain: ragged sub-block
+    counts, through the wrapper; through the C entry into an output filled
+    with a sentinel; extreme predictions (the 14-bit domain's ends, and
+    int32's)."""
+    rng = np.random.default_rng(110 + 2 * w + h + bd)
+    lo, hi = -(1 << 13), (1 << 14) + (1 << 13) - 1
+    for n in _bdof_counts(w, h):
+        p0, p1 = (torch.from_numpy(a) for a in T.bdof_case(rng, n, w, h, bd))
+        want = RK.bdof_blend_batch_plain(p0, p1, bd, w, h)
+        got = RK.bdof_blend_batch_cuda(p0, p1, bd, w, h)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+        out = torch.full((n, h, w), -12345, dtype=torch.int32)
+        assert lib.vtm_bdof_blend(p0.data_ptr(), p1.data_ptr(), n, w, h, bd,
+                                  out.data_ptr(), None) == 0
+        np.testing.assert_array_equal(out.numpy(), want.numpy())
+    n = _bdof_counts(w, h)[2]
+    for ends in ((lo, hi), (-(1 << 31), (1 << 31) - 1)):
+        p0, p1 = (torch.from_numpy(rng.choice(np.array(ends, dtype=np.int32),
+                                              (n, h + 2, w + 2)))
+                  for _ in range(2))
+        np.testing.assert_array_equal(RK.bdof_blend_batch_cuda(p0, p1, bd, w, h).numpy(),
+                                      RK.bdof_blend_batch_plain(p0, p1, bd, w, h).numpy())
+
+
+@pytest.mark.parametrize("w,h", [(8, 8), (16, 16)])
+def test_bdof_blend_unaligned(lib, w, h):
+    """Predictions and output 4 bytes off a 16-byte boundary give the same
+    result; a 4-wide sub-block is refused."""
+    rng = np.random.default_rng(120 + w)
+    n = _bdof_counts(w, h)[2]
+    p0, p1 = (_misaligned(a) for a in T.bdof_case(rng, n, w, h, 10))
+    out = _misaligned(np.full((n, h, w), -12345, dtype=np.int32))
+    assert lib.vtm_bdof_blend(p0.data_ptr(), p1.data_ptr(), n, w, h, 10,
+                              out.data_ptr(), None) == 0
+    np.testing.assert_array_equal(out.numpy(),
+                                  RK.bdof_blend_batch_plain(p0, p1, 10, w, h).numpy())
+    assert lib.vtm_bdof_blend(p0.data_ptr(), p1.data_ptr(), n, 4, h, 10,
+                              out.data_ptr(), None) != 0
+
+
+def _transform_pairs():
+    """Every (h, w, tr_hor, tr_ver) that transform._check_shape accepts."""
+    kinds = (TR.DCT2, TR.DCT8, TR.DST7)
+    pairs = []
+    for h in (2, 4, 8, 16, 32, 64):
+        for w in (2, 4, 8, 16, 32, 64):
+            for tr_hor in kinds:
+                for tr_ver in kinds:
+                    try:
+                        TR._check_shape(h, w, tr_hor, tr_ver)
+                    except ValueError:
+                        continue
+                    pairs.append((h, w, tr_hor, tr_ver))
+    return pairs
+
+
+def _coeffs(rng, n: int, h: int, w: int) -> np.ndarray:
+    """n int16-range blocks: seeded values, then blocks at the range's ends
+    (-32768 and 32767 only)."""
+    c = rng.integers(-32768, 32768, size=(n, h, w))
+    ends = rng.choice(np.array([-32768, 32767]), size=(n, h, w))
+    return np.where(np.arange(n)[:, None, None] % 2 == 1, ends, c).astype(np.int32)
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_inv_transform_every_shape(emu_launch, bd):
+    """inv_transform_batch_cuda against the plain version on every block
+    size and kind pair: three blocks each, which the square 8-64 shapes
+    take to the register-tiled kernel (fewer blocks than a group, or at 64
+    points three groups) and every other shape to the general kernel."""
+    rng = np.random.default_rng(130 + bd)
+    pairs = _transform_pairs()
+    assert len(pairs) == 196
+    for h, w, tr_hor, tr_ver in pairs:
+        c = torch.from_numpy(_coeffs(rng, 3, h, w))
+        np.testing.assert_array_equal(
+            TR.inv_transform_batch_cuda(c, bd, tr_hor, tr_ver).numpy(),
+            TR.inv_transform_batch_plain(c, bd, tr_hor, tr_ver).numpy())
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("n", [8, 16, 32, 64])
+def test_inv_transform_tiles(lib, n, bd):
+    """The register-tiled kernel through the C entry, into an output filled
+    with a sentinel: block counts of a group less one, one group, a group
+    and a part of the next, and three groups and one (the emulation keeps
+    one CTA resident, so it walks every group), DCT2 and mixed DST7 / DCT8;
+    then the same blocks 4 bytes off a 16-byte boundary, which the general
+    kernel takes, with the same result."""
+    rng = np.random.default_rng(140 + n + bd)
+    group = 256 // (n // 4) ** 2  # 256 threads, a 4 x 4 tile each
+    kinds = [(TR.DCT2, TR.DCT2)] + ([(TR.DST7, TR.DCT8)] if n <= 32 else [])
+    for tr_hor, tr_ver in kinds:
+        tv, th = TR._tmat(tr_ver, n, "cpu"), TR._tmat(tr_hor, n, "cpu")
+        for b in sorted({max(group - 1, 1), group, group + group // 2 + 1, 3 * group + 1}):
+            c = torch.from_numpy(_coeffs(rng, b, n, n))
+            want = TR.inv_transform_batch_plain(c, bd, tr_hor, tr_ver).numpy()
+            out = torch.full((b, n, n), -12345, dtype=torch.int32)
+            assert lib.vtm_inv_transform(c.data_ptr(), out.data_ptr(), tv.data_ptr(),
+                                         th.data_ptr(), b, n, n, bd, None) == 0
+            np.testing.assert_array_equal(out.numpy(), want)
+        c = _misaligned(_coeffs(rng, group + 1, n, n))
+        out = _misaligned(np.full((group + 1, n, n), -12345, dtype=np.int32))
+        assert lib.vtm_inv_transform(c.data_ptr(), out.data_ptr(), tv.data_ptr(),
+                                     th.data_ptr(), group + 1, n, n, bd, None) == 0
+        np.testing.assert_array_equal(
+            out.numpy(), TR.inv_transform_batch_plain(c, bd, tr_hor, tr_ver).numpy())
+
+
+def test_recon_sse(emu_launch):
+    """The sharded reconstruction's epilogue against its plain version on
+    three 32x32 blocks: clipped samples and the exact sum of squares."""
+    rng = np.random.default_rng(150)
+    shape = (3, 32, 32)
+    resid = torch.from_numpy(rng.integers(-300, 300, size=shape).astype(np.int32))
+    pred = torch.from_numpy(rng.integers(0, 256, size=shape).astype(np.int32))
+    orig = torch.from_numpy(rng.integers(0, 256, size=shape).astype(np.int32))
+    recon, sse = MS.recon_sse_cuda(resid, pred, orig)
+    want_recon, want_sse = MS.recon_sse_plain(resid, pred, orig)
+    np.testing.assert_array_equal(recon.numpy(), want_recon.numpy())
+    assert int(sse[0]) == int(want_sse[0])

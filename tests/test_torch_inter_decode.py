@@ -1,7 +1,8 @@
 """Inter, IBC, DMVR and BDOF decode through vtm_tpu_torch on the CPU.
 
 (a) golden inter and IBC streams decode hash-exact through
-    Decoder(device="cpu"), the flagship RA stream through every batched
+    Decoder(device="cpu"), every picture's luma deblocking maps with
+    disjoint filter extents, the flagship RA stream through every batched
     path (MC, DMVR search, final FIR, BDOF);
 (b) the DMVR-refined motion field equals the reference decoder's, and
     differs without the write-back;
@@ -23,6 +24,8 @@ from vtm_tpu_torch.decoder import app, filters, refine
 from vtm_tpu_torch.decoder.declib import Decoder
 from vtm_tpu_torch.ops import mc_kernel as MK
 from vtm_tpu_torch.ops import refine_kernel as RK
+
+import _deblock_maps as DM
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TD = os.path.join(ROOT, "testdata")
@@ -61,11 +64,15 @@ def read(name):
 
 
 def decode_port(name, device="cpu"):
+    """Decode hash-exact; the luma deblocking maps of every picture meet the
+    kernels' precondition, disjoint filter extents (tests/_deblock_maps.py)."""
     dec = Decoder(device=device)
-    pics = dec.decode_stream(read(name))
+    with DM.recorded_deblock_maps() as maps:
+        pics = dec.decode_stream(read(name))
     assert pics and len(dec.hash_results) == len(pics)
     for hr in dec.hash_results:
         assert hr.ok, f"{name}: hash mismatch at POC {hr.poc}"
+    DM.assert_luma_extents_disjoint(maps, name)
     return dec, pics
 
 

@@ -9,10 +9,24 @@
 // Magnitudes: |c| <= 32768 and |t| <= 91 over at most 64 terms, so every sum
 // stays below 2^28 and no int32 product or accumulation wraps.
 //
-// `vtm_inv_transform`: one CUDA block per group of G coefficient blocks
-// (G * H * W about 1024 samples, at least one block); both basis matrices
-// and the group's coefficients sit in shared memory, the stage-1 result too,
-// and every thread forms whole output samples with int32 multiply-adds.
+// `vtm_inv_transform` dispatches by shape.  Square N x N blocks, N in
+// {8, 16, 32, 64}, with every pointer 16-byte aligned, take
+// `inv_transform_tile_kernel<N>`: a persistent grid (as many CTAs of 256
+// threads as the card keeps resident, or fewer), each CTA loading both
+// basis matrices into shared memory once and then walking groups of
+// G = 256 / (N/4)^2 blocks (64, 16, 4, 1).  A thread owns one 4 x 4 tile of
+// one block's output in each stage: per k, one 16-byte shared load of four
+// matrix values and one of four data values feed 16 int32 multiply-adds.
+// Stage 1 stores its tiles transposed, so stage 2 reads tmp's columns as
+// 16-byte rows; in shared memory a block of 8 (16) points is followed by
+// 8 (16) spare words, so a warp's loads from several blocks spread over the
+// banks.  Coefficients
+// come in with 16-byte loads, the next group's held in registers while the
+// current one computes; outputs leave as 16-byte stores.  Every other shape
+// or alignment takes `inv_transform_kernel`: one CUDA block per group of G
+// coefficient blocks (G * H * W about 1024 samples, at least one block),
+// both basis matrices and the group's coefficients in shared memory, the
+// stage-1 result too, and every thread forming whole output samples.
 //
 // `vtm_inv_transform_s8`: the same function on the int8 tensor cores, as the
 // reference ran it on the TPU's matrix unit.  An int16 operand x splits into
@@ -42,6 +56,12 @@ constexpr int kThreads = 256;
 constexpr int kS8Threads = 128;
 
 __device__ __forceinline__ int clip16(int v) { return clip3(-32768, 32767, v); }
+
+static int set_smem(const void* kernel, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   bytes);
+}
 
 static int group_size(int H, int W, int target) {
   const int g = target / (H * W);
@@ -85,6 +105,128 @@ __global__ void inv_transform_kernel(const int* __restrict__ coeff,
     for (int k = 0; k < W; ++k) acc += row[k] * sth[k * W + x];
     dst[i] = clip16((acc + rnd) >> shift2);
   }
+}
+
+// ---- square blocks in register tiles ---------------------------------------
+
+template <int N>
+struct TileShape {
+  static constexpr int kSide = N / 4;                    // 4 x 4 tiles a side
+  static constexpr int kG = kThreads / (kSide * kSide);  // blocks a group
+  static constexpr int kStride = N * N + (N == 8 ? 8 : N == 16 ? 16 : 0);
+  static constexpr int kQuads = N * N / 4;               // int4s a block
+  static constexpr int kLoads = kG * kQuads / kThreads;  // int4s a thread a group
+  static constexpr int kWords = 2 * N * N + 2 * kG * kStride;  // shared words
+};
+
+// acc[i][j] += sum_k a[k][y0 + i] * b[k][x0 + j] over rows of N words.
+template <int N>
+__device__ __forceinline__ void tile_mac(const int* a, const int* b, int acc[4][4]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int4 u = *reinterpret_cast<const int4*>(a + k * N);
+    const int4 v = *reinterpret_cast<const int4*>(b + k * N);
+    const int ua[4] = {u.x, u.y, u.z, u.w}, vb[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += ua[i] * vb[j];
+  }
+}
+
+// Group gi's coefficients, this thread's share (int4 q = tid + e * 256),
+// into registers.
+template <int N>
+__device__ __forceinline__ void load_group(const int4* __restrict__ coeff, long long B,
+                                           long long gi, int4 (&next)[TileShape<N>::kLoads]) {
+  using S = TileShape<N>;
+  const long long quads = min((long long)S::kG, B - gi * S::kG) * S::kQuads;
+  const int4* src = coeff + gi * S::kG * S::kQuads;
+#pragma unroll
+  for (int e = 0; e < S::kLoads; ++e) {
+    const int q = threadIdx.x + e * kThreads;
+    if (q < quads) next[e] = src[q];
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(kThreads)
+    inv_transform_tile_kernel(const int4* __restrict__ coeff, int4* __restrict__ out,
+                              const int4* __restrict__ tv, const int4* __restrict__ th,
+                              long long B, int shift2) {
+  using S = TileShape<N>;
+  extern __shared__ int smem[];
+  int* stv = smem;                  // N x N: stv[k * N + y] = Tv[k][y]
+  int* sth = stv + N * N;           // N x N: sth[k * N + x] = Th[k][x]
+  int* sc = sth + N * N;            // G blocks, S::kStride apart
+  int* stt = sc + S::kG * S::kStride;  // tmp transposed: stt[x * N + y]
+  const int tid = threadIdx.x;
+  for (int q = tid; q < N * N / 4; q += kThreads) {
+    reinterpret_cast<int4*>(stv)[q] = tv[q];
+    reinterpret_cast<int4*>(sth)[q] = th[q];
+  }
+  const int g = tid / (S::kSide * S::kSide);
+  const int r = tid % (S::kSide * S::kSide);
+  const int y0 = r / S::kSide * 4, x0 = r % S::kSide * 4;
+  const long long groups = (B + S::kG - 1) / S::kG;
+  const int rnd = 1 << (shift2 - 1);
+  int4 next[S::kLoads];
+  if (blockIdx.x < groups) load_group<N>(coeff, B, blockIdx.x, next);
+  for (long long gi = blockIdx.x; gi < groups; gi += gridDim.x) {
+    const int n = (int)min((long long)S::kG, B - gi * S::kG);
+#pragma unroll
+    for (int e = 0; e < S::kLoads; ++e) {
+      const int q = tid + e * kThreads;
+      if (q < n * S::kQuads)
+        reinterpret_cast<int4*>(sc + q / S::kQuads * S::kStride)[q % S::kQuads] = next[e];
+    }
+    __syncthreads();
+    if (gi + gridDim.x < groups) load_group<N>(coeff, B, gi + gridDim.x, next);
+    if (g < n) {
+      // stage 1, vertical: tmp[y][x] = sum_k Tv[k][y] c[k][x]
+      int acc[4][4] = {};
+      tile_mac<N>(stv + y0, sc + g * S::kStride + x0, acc);
+      int* t = stt + g * S::kStride;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<int4*>(t + (x0 + j) * N + y0) =
+            make_int4(clip16((acc[0][j] + 64) >> 7), clip16((acc[1][j] + 64) >> 7),
+                      clip16((acc[2][j] + 64) >> 7), clip16((acc[3][j] + 64) >> 7));
+    }
+    __syncthreads();
+    if (g < n) {
+      // stage 2, horizontal: out[y][x] = sum_k tmp[y][k] Th[k][x]
+      int acc[4][4] = {};
+      tile_mac<N>(stt + g * S::kStride + y0, sth + x0, acc);
+      int4* dst = out + (gi * S::kG + g) * S::kQuads + (y0 * N + x0) / 4;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        dst[i * N / 4] = make_int4(
+            clip16((acc[i][0] + rnd) >> shift2), clip16((acc[i][1] + rnd) >> shift2),
+            clip16((acc[i][2] + rnd) >> shift2), clip16((acc[i][3] + rnd) >> shift2));
+    }
+  }
+}
+
+template <int N>
+static int launch_tiles(const int* coeff, int* out, const int* tv, const int* th,
+                        long long B, int shift2, cudaStream_t stream) {
+  using S = TileShape<N>;
+  const auto kernel = inv_transform_tile_kernel<N>;
+  const int smem = S::kWords * (int)sizeof(int);
+  int dev = 0, sms = 0, per_sm = 0;
+  int e = set_smem((const void*)kernel, smem);
+  if (!e) e = (int)cudaGetDevice(&dev);
+  if (!e) e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (!e) e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (e) return e;
+  const long long groups = (B + S::kG - 1) / S::kG;
+  const long long resident = sms * per_sm > 0 ? sms * per_sm : 1;
+  const unsigned grid = (unsigned)(groups < resident ? groups : resident);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      reinterpret_cast<const int4*>(coeff), reinterpret_cast<int4*>(out),
+      reinterpret_cast<const int4*>(tv), reinterpret_cast<const int4*>(th), B, shift2);
+  return launch_status();
 }
 
 // ---- int8 tensor-core form ------------------------------------------------
@@ -299,23 +441,30 @@ __global__ void recon_sse_kernel(const int* __restrict__ resid,
   }
 }
 
-static int set_smem(const void* kernel, int bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   bytes);
-}
-
 VTM_API int vtm_inv_transform(const int* coeff, int* out, const int* tv,
                               const int* th, long long B, int H, int W,
                               int bit_depth, void* stream) {
   if (B == 0) return 0;
+  const int shift2 = 20 - bit_depth;
+  cudaStream_t st = (cudaStream_t)stream;
+  const uintptr_t ptrs = (uintptr_t)coeff | (uintptr_t)out | (uintptr_t)tv | (uintptr_t)th;
+  const bool aligned = ptrs % 16 == 0;
+  if (aligned && H == W) {
+    switch (H) {
+      case 8: return launch_tiles<8>(coeff, out, tv, th, B, shift2, st);
+      case 16: return launch_tiles<16>(coeff, out, tv, th, B, shift2, st);
+      case 32: return launch_tiles<32>(coeff, out, tv, th, B, shift2, st);
+      case 64: return launch_tiles<64>(coeff, out, tv, th, B, shift2, st);
+      default: break;
+    }
+  }
   const int G = group_size(H, W, 1024);
   const int smem = (H * H + W * W + 2 * G * H * W) * (int)sizeof(int);
   const int e = set_smem((const void*)inv_transform_kernel, smem);
   if (e) return e;
   const unsigned grid = (unsigned)((B + G - 1) / G);
-  inv_transform_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      coeff, out, tv, th, B, H, W, G, 20 - bit_depth);
+  inv_transform_kernel<<<grid, kThreads, smem, st>>>(coeff, out, tv, th, B, H, W, G,
+                                                    shift2);
   return launch_status();
 }
 

@@ -193,8 +193,9 @@ def dryrun_multichip(n: int, device="cuda", stream: str = STREAM,
     `tile` overrides the reference's tile choice (the rest of the lanes go
     to 'gop').  Raises unless every lane equals its picture's single-lane
     result; returns what ran, with the host seconds of each of the
-    `repeats` runs of each stage (inputs uploaded, result fetched) and the
-    kernel launches of one run of every stage (`launches`)."""
+    `repeats` runs of each stage (inputs uploaded, result fetched), the
+    kernel launches of one run of each stage (`stage_launches`: {stage:
+    {entry point: count}}) and of one run of every stage (`launches`)."""
     if cap is None:
         key = (stream, str(device))
         if key not in _CAPTURES:
@@ -235,9 +236,11 @@ def dryrun_multichip(n: int, device="cuda", stream: str = STREAM,
                [np.stack([a[1][i] for a in sel]) for i in range(7)],
                [np.stack([a[2][i] for a in sel]) for i in range(7)], *rest)
     launches: dict = {}
+    report["stage_launches"] = {}
 
     def timed(stage, run):
         out, report[stage], one = timed_runs(run, repeats)
+        report["stage_launches"][stage] = one
         for k, v in one.items():
             launches[k] = launches.get(k, 0) + v
         return out

@@ -153,16 +153,13 @@ def make_sharded_luma_filters(mesh, have_sao: bool, have_alf: bool, bd: int):
     return fn
 
 
-def sharded_mc_tiles(mesh, cap):
-    """A captured MC tile batch with its job axis split over every lane
-    (padded with zero jobs to a multiple of the lane count, as the
-    reference pads); the reference planes are copied to each lane.
-    cap: {"args": (refs [R, H, W], r, x, y, ch, cv, fy, rnd), "taps",
-    "tile", "bd"}.  Returns the [N, tile, tile] results on the first lane's
-    device."""
+def split_mc_jobs(cap, n_dev: int):
+    """A captured MC tile batch's job arrays split over n_dev lanes, padded
+    with zero jobs to a multiple of n_dev (as the reference pads): (refs
+    [R, H, W], [lane i's job arrays for i < n_dev]), on the host.
+    cap: {"args": (refs [R, H, W], r, x, y, ch, cv, fy, rnd), ...}."""
     refs, *jobs = (_t(a) for a in cap["args"])
     nb = jobs[0].shape[0]
-    n_dev = mesh.size
     npad = -(-nb // n_dev) * n_dev
     share = npad // n_dev
 
@@ -172,14 +169,23 @@ def sharded_mc_tiles(mesh, cap):
         return out
 
     jobs = [padn(a) for a in jobs]
+    return refs, [[a[i * share:(i + 1) * share] for a in jobs] for i in range(n_dev)]
+
+
+def sharded_mc_tiles(mesh, cap):
+    """A captured MC tile batch with its job axis split over every lane
+    (split_mc_jobs); the reference planes are copied to each lane.
+    cap: {"args": (refs [R, H, W], r, x, y, ch, cv, fy, rnd), "taps",
+    "tile", "bd"}.  Returns the [N, tile, tile] results on the first lane's
+    device."""
+    refs, shares = split_mc_jobs(cap, mesh.size)
     home = mesh.devices[0]
     outs = []
-    for i, dev in enumerate(mesh.devices):
+    for dev, part in zip(mesh.devices, shares):
         planes = [_on(p, dev) for p in refs]
-        part = [_on(a[i * share:(i + 1) * share], dev) for a in jobs]
-        outs.append(mc_tiles(planes, *part, taps=cap["taps"], tile=cap["tile"],
-                             bd=cap["bd"]).to(home))
-    return torch.cat(outs)[:nb]
+        outs.append(mc_tiles(planes, *(_on(a, dev) for a in part), taps=cap["taps"],
+                             tile=cap["tile"], bd=cap["bd"]).to(home))
+    return torch.cat(outs)[:cap["args"][1].shape[0]]
 
 
 def full_chain_sig(c):
