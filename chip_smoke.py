@@ -14,8 +14,9 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    (ptxas -v; a template instantiation with its arguments), and the
    deblocking tile kernels' launch shape (resident blocks an SM); an RMD
    kernel that spills, or an MC, ALF-filter, ALF-classifier, luma
-   deblocking tile, FIR, RMD-reduction or register-tiled inverse
-   transform kernel with a stack frame or spills, fails;
+   deblocking tile, FIR, DMVR-search, BDOF, RMD-reduction or
+   register-tiled inverse transform kernel with a stack frame or spills,
+   fails;
 3. each kernel against its plain torch version, exactly:
    - the filter kernels on the real chain inputs of POC 0 of
      testdata/ai_full_hd1080_qp37.bit (1920x1080 4:2:0 8-bit, LMCS +
@@ -24,9 +25,10 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    - the MC, DMVR-search, FIR and BDOF kernels on the inputs of every call
      of the port's own CUDA decode of testdata/ra_full_bq416_qp37.bit
      (416x240 RA, every inter tool on; the FIR group by group and as
-     dmvr_final_pack's one launch), timed there as the decode launches
-     them, and on numpy-seeded batches the size of a 1080p 4:2:0 picture
-     (the FIR also as a six-group dmvr_final_pack);
+     dmvr_final_pack's one launch; each DMVR and BDOF call's size beside
+     its count), timed there as the decode launches them, and on
+     numpy-seeded batches the size of a 1080p 4:2:0 picture (the FIR also
+     as a six-group dmvr_final_pack);
    kernel and plain times from CUDA events: the
    kernel's device time (`ms`: a spin kernel queued ahead of the start
    event keeps the host's issue time out of the window; a row that cannot
@@ -130,7 +132,10 @@ the MC tiles on phase 3's 1080p-sized seeded batches; alf.cu and
 common.cuh time the classifier on POC 0's luma and the ALF filter on its
 Y, Cb and Cr;
 refine.cu, fir.cuh and common.cuh time the FIR on phase 3's 1080p-sized
-luma blocks and six-group dmvr_final_pack call; transform.cu and
+luma blocks and six-group dmvr_final_pack call, and the DMVR search and
+the BDOF blend on every call of the RA decode (recorded from this
+checkout's decode, a row a call) and on 8,100 seeded 16x16 sub-PUs and
+sub-blocks; transform.cu and
 common.cuh time the int32 inverse transform on the sharded
 reconstruction's 4,080- and 1,020-block lane slices of 32x32 DCT2 blocks
 and on 1080p-plane batches of the DCT2 sizes 8 to 64.
@@ -217,7 +222,8 @@ NO_LOCAL_MEMORY = {
                     ("spill_stores", "spill_loads")),
     **dict.fromkeys(("mc_tiles_kernel", "alf_filter_kernel", "fir_blocks_kernel",
                      "rmd_reduce_kernel", "alf_classify_kernel", "luma_tile_kernel",
-                     "inv_transform_tile_kernel"),
+                     "inv_transform_tile_kernel", "dmvr_search_kernel",
+                     "bdof_blend_kernel"),
                     ("spill_stores", "spill_loads", "stack_frame"))}
 # runs of each sharded stage whose host seconds are compared (median)
 REPEATS = 7
@@ -679,6 +685,17 @@ def mc_ops(n: int, taps: int, tile: int) -> int:
     return n * ((tile + taps - 1) * tile + tile * tile) * taps
 
 
+def dmvr_ops(n: int, dx: int, dy: int) -> int:
+    """Operations of n DMVR searches: 25 offsets, a SAD over the even rows of
+    a dx x dy sub-PU (3 ops a sample)."""
+    return n * 25 * (dx * dy // 2) * 3
+
+
+def bdof_ops(n: int, w: int, h: int) -> int:
+    """Operations of n w x h BDOF sub-blocks, 30 a sample."""
+    return n * w * h * 30
+
+
 def mc_ref_bytes(planes, jobs, taps: int, tile: int) -> Bytes:
     """Bytes of the reference rows an MC batch can read: on each plane, the
     whole rows that its tiles' windows reach (clamped to the plane, as the
@@ -716,10 +733,10 @@ def check_inter_recorded(chk: KernelCheck, got, MK, RK):
                         ops=mc_ops(n, taps, tile))
     for args, kw in got["search"]:
         n = args[0].shape[0]
-        chk.compare("vtm_dmvr_search", f"{label}, {n} sub-PUs",
+        chk.compare("vtm_dmvr_search", f"{label}, {n} {kw['dx']}x{kw['dy']} sub-PUs",
                     lambda: RK.dmvr_search_cuda(*args, **kw),
                     lambda: RK.dmvr_search_plain(*args, **kw), timed=True,
-                    ins=args, ops=n * 25 * (kw["dx"] * kw["dy"] // 2) * 3)
+                    ins=args, ops=dmvr_ops(n, kw["dx"], kw["dy"]))
     for (l0, l1, cargs), kw in got["pack"]:
         jobs = pack_jobs(l0, l1, cargs, **kw)
         for a, fk in jobs:
@@ -733,10 +750,10 @@ def check_inter_recorded(chk: KernelCheck, got, MK, RK):
                     ins=(l0, l1, cargs), ops=fir_ops(jobs))
     for args, kw in got["bdof"]:
         n = args[0].shape[0]
-        chk.compare("vtm_bdof_blend", f"{label}, {n} sub-blocks",
+        chk.compare("vtm_bdof_blend", f"{label}, {n} {kw['w']}x{kw['h']} sub-blocks",
                     lambda: RK.bdof_blend_batch_cuda(*args, **kw),
                     lambda: RK.bdof_blend_batch_plain(*args, **kw), timed=True,
-                    ins=args, ops=n * kw["w"] * kw["h"] * 30)
+                    ins=args, ops=bdof_ops(n, kw["w"], kw["h"]))
 
 
 def pack_jobs(l0, l1, cargs, w: int, h: int, wc: int, hc: int, bd: int):
@@ -818,11 +835,10 @@ def check_inter_1080p(chk: KernelCheck, MK, RK, dev, seed: int = 9):
     label = "1080p seeded, 8100 16x16"
     kw = dict(bd=bd, dx=16, dy=16)
     args = [d(a) for a in T.dmvr_case(rng, 8100, 16, 16, bd)]
-    # 25 offsets, a SAD over the even rows of a 16x16 sub-PU (3 ops a sample)
     chk.compare("vtm_dmvr_search", f"{label} sub-PUs",
                 lambda: RK.dmvr_search_cuda(*args, **kw),
                 lambda: RK.dmvr_search_plain(*args, **kw),
-                ins=args, ops=8100 * 25 * 128 * 3, **at)
+                ins=args, ops=dmvr_ops(8100, 16, 16), **at)
     kw = dict(w=16, h=16, taps=8, bd=bd)
     args = [d(a) for a in T.fir_blocks_case(rng, 8100, 8, 16, 16, bd)]
     chk.compare("vtm_fir_blocks", f"{label} luma blocks",
@@ -834,7 +850,7 @@ def check_inter_1080p(chk: KernelCheck, MK, RK, dev, seed: int = 9):
     chk.compare("vtm_bdof_blend", f"{label} sub-blocks",
                 lambda: RK.bdof_blend_batch_cuda(*args, **kw),
                 lambda: RK.bdof_blend_batch_plain(*args, **kw),
-                ins=args, ops=8100 * 256 * 30, **at)
+                ins=args, ops=bdof_ops(8100, 16, 16), **at)
     # the main path's form of the FIR: dmvr_final_pack's six groups, one launch
     l0, l1, cargs, kw = pack_1080p_case(rng, dev)
     jobs = pack_jobs(l0, l1, cargs, **kw)
@@ -1250,18 +1266,23 @@ def versus_rmd(torch, KN, other: str) -> None:
 
 
 def versus_refine(torch, KN, other: str) -> None:
-    """vtm_fir_blocks against the build of another refine.cu in `other`
-    (with its fir.cuh and common.cuh), in turns, on phase 3's 1080p-sized
-    8,100 16x16 luma blocks, and on a dmvr_final_pack call of 8,100 16x16
-    sub-PUs (six groups): an entry point of job groups (`int ngroups`, as
-    here) gets the six groups in one launch; the older one (commit 760a03e
-    and before: one group a launch, the arguments one by one) six launches,
-    timed as one call."""
+    """The kernels of refine.cu against the build of another refine.cu in
+    `other` (with its fir.cuh and common.cuh), in turns, outputs held
+    equal.  vtm_dmvr_search and vtm_bdof_blend on the inputs of every call
+    of the RA decode (recorded from this build's own decode, one row a
+    call, then their sum) and on 8,100 seeded 16x16 sub-PUs or sub-blocks;
+    vtm_fir_blocks on phase 3's 1080p-sized 8,100 16x16 luma blocks, and
+    on a dmvr_final_pack call of 8,100 16x16 sub-PUs (six groups): an
+    entry point of job groups (`int ngroups`, as here) gets the six groups
+    in one launch; the older one (commit 760a03e and before: one group a
+    launch, the arguments one by one) six launches, timed as one call."""
     import ctypes
 
     import numpy as np
 
     from vtm_tpu_torch import testing as T
+    from vtm_tpu_torch.decoder.declib import Decoder
+    from vtm_tpu_torch.ops import mc_kernel as MK
     from vtm_tpu_torch.ops import refine_kernel as RK
     from vtm_tpu_torch.ops.filter_chain import to_device
 
@@ -1318,6 +1339,59 @@ def versus_refine(torch, KN, other: str) -> None:
                f"{'1 launch' if grouped else '6 launches'})", lambda: other_fir(jobs, theirs),
                lambda: RK.dmvr_final_pack(l0, l1, cargs, **kw), theirs, (l0, l1, cargs), sums)
     versus_sums(sums, "luma blocks + dmvr_final_pack")
+    versus_search_blend(torch, KN, other, lib, capture_inter_inputs(MK, RK, Decoder), rng)
+
+
+def versus_search_blend(torch, KN, other: str, lib, got: dict, rng) -> None:
+    """--versus rows of vtm_dmvr_search and vtm_bdof_blend: the other
+    build's entries of `lib` against this build's wrappers, on the RA
+    decode's recorded calls (`got`, from capture_inter_inputs) and on 8,100
+    seeded 16x16 sub-PUs and sub-blocks; the bound counts the inputs and
+    the output, and the operations of dmvr_ops and bdof_ops."""
+    import ctypes
+
+    from vtm_tpu_torch import testing as T
+    from vtm_tpu_torch.ops import refine_kernel as RK
+    from vtm_tpu_torch.ops.filter_chain import to_device
+
+    search, blend = lib.versus_dmvr_search, lib.versus_bdof_blend
+    for fn, name in ((search, "vtm_dmvr_search"), (blend, "vtm_bdof_blend")):
+        fn.argtypes = list(KN._SIGNATURES[name])
+        fn.restype = ctypes.c_int
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    bil = RK._bilinear_table(dev).data_ptr()
+
+    def search_row(label, args, kw, sums):
+        n = args[0].shape[0]
+        theirs = torch.full((3, n), -1, dtype=torch.int32, device=dev)
+        versus_row(torch, other, "vtm_dmvr_search", f"{label}, {n} {kw['dx']}x{kw['dy']} "
+                   "sub-PUs", lambda: search(*(a.data_ptr() for a in args), bil, n, kw["dx"],
+                                            kw["dy"], kw["bd"], theirs.data_ptr(), stream),
+                   lambda: RK.dmvr_search_cuda(*args, **kw), theirs, args, sums,
+                   ops=dmvr_ops(n, kw["dx"], kw["dy"]))
+
+    def blend_row(label, args, kw, sums):
+        n = args[0].shape[0]
+        theirs = torch.full((n, kw["h"], kw["w"]), -1, dtype=torch.int32, device=dev)
+        versus_row(torch, other, "vtm_bdof_blend", f"{label}, {n} {kw['w']}x{kw['h']} "
+                   "sub-blocks", lambda: blend(args[0].data_ptr(), args[1].data_ptr(), n,
+                                              kw["w"], kw["h"], kw["bd"], theirs.data_ptr(),
+                                              stream),
+                   lambda: RK.bdof_blend_batch_cuda(*args, **kw), theirs, args, sums,
+                   ops=bdof_ops(n, kw["w"], kw["h"]))
+
+    sums = {}
+    for args, kw in got["search"]:
+        search_row(RA_STREAM, args, kw, sums)
+    for args, kw in got["bdof"]:
+        blend_row(RA_STREAM, args, kw, sums)
+    versus_sums(sums, f"the {RA_STREAM} decode's calls")
+    bd = 8
+    args = [to_device(a, dev) for a in T.dmvr_case(rng, 8100, 16, 16, bd)]
+    search_row("1080p seeded", args, dict(bd=bd, dx=16, dy=16), {})
+    args = [to_device(a, dev) for a in T.bdof_case(rng, 8100, 16, 16, bd)]
+    blend_row("1080p seeded", args, dict(bd=bd, w=16, h=16), {})
 
 
 def versus_transform(torch, KN, other: str) -> None:

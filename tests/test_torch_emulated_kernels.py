@@ -1,6 +1,6 @@
-"""The SATD, RMD, deblocking, MC, FIR, BDOF, ALF and transform CUDA sources, built for
-the CPU by the test-support emulation of tests/_emu, against their plain
-torch versions.
+"""The SATD, RMD, deblocking, MC, FIR, DMVR, BDOF, ALF and transform CUDA
+sources, built for the CPU by the test-support emulation of tests/_emu,
+against their plain torch versions.
 
 No card and no nvcc here, so the kernels themselves run on the chip only
 (chip_smoke.py and the `cuda` tests hold them to the plain versions there).
@@ -19,8 +19,10 @@ ties), the ALF filter tiles (a template per component, halo rows and
 columns, out-of-halo row offsets read from the plane), the ALF classifier's
 tiles (a staged band of rows, gradients once, out-of-band row indices, the
 int32 wrap), the luma deblocking delta tiles (every element written, halo
-deltas) through their wrappers, the BDOF entry (every sub-block size,
-ragged counts, extreme predictions, unaligned pointers), and the inverse
+deltas) through their wrappers, the DMVR search entry (every sub-PU size,
+crafted ties and an early exit, ragged counts, unaligned pointers), the
+BDOF entry (every sub-block size, ragged counts, extreme predictions,
+unaligned pointers), and the inverse
 transform's register-tiled CTAs (square blocks in groups, a persistent CTA
 walking several groups, ragged last groups) beside its general kernel
 (every other shape, and unaligned pointers), with the reconstruction
@@ -310,11 +312,17 @@ def test_extents_disjoint_linear_equals_pairs(seed):
 def _misaligned(a: np.ndarray, aligned: bool = False) -> torch.Tensor:
     """`a` as a contiguous int32 tensor, 4 bytes off a 16-byte boundary
     unless `aligned`."""
+    return _at_word(a, 0 if aligned else 1)
+
+
+def _at_word(a: np.ndarray, k: int) -> torch.Tensor:
+    """`a` as a contiguous int32 tensor k words (4 k bytes) past a 16-byte
+    boundary."""
     buf = torch.empty(a.size + 4, dtype=torch.int32)
-    off = (-buf.data_ptr() // 4) % 4 + (0 if aligned else 1)
+    off = (-buf.data_ptr() // 4) % 4 + k
     t = buf[off:off + a.size].view(a.shape)
     t.copy_(torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)))
-    assert (t.data_ptr() % 16 == 0) == aligned
+    assert t.data_ptr() % 16 == 4 * k
     return t
 
 
@@ -572,12 +580,58 @@ def test_dmvr_final_pack_one_launch(fir_launches, lib, bd):
                                   out.data_ptr(), None) != 0
 
 
+def _block_counts(per: int) -> tuple:
+    """Sub-PU or sub-block counts for a kernel whose thread block takes
+    `per` of them: one, and a group less one, one group, a group and one,
+    and three groups and one."""
+    return tuple(sorted({1, per - 1, per, per + 1, 3 * per + 1} - {0}))
+
+
 def _bdof_counts(w: int, h: int) -> tuple:
-    """Sub-block counts: one, and counts around multiples of the sub-blocks
-    that 256 threads of 4 samples each would cover (a group less one, a
-    group and a part of the next, three groups and one)."""
-    group = 256 // (w * h // 4)
-    return tuple(n for n in (1, group - 1, group + group // 2 + 1, 3 * group + 1) if n)
+    """Sub-block counts around multiples of the sub-blocks that a block of
+    64 threads, one a row of a 4x4, takes (one at 16x16, four at 8x8)."""
+    return _block_counts(64 // (h * w // 4))
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("dx,dy", [(8, 8), (16, 8), (8, 16), (16, 16)])
+def test_dmvr_search(lib, emu_launch, dx, dy, bd):
+    """vtm_dmvr_search against dmvr_search_plain on T.dmvr_case's sub-PUs:
+    its crafted windows first (the biased centre tying the minimum, a
+    five-way tie away from the centre, an early termination), then seeded
+    ones; counts of one and around multiples of the sub-PUs a block takes
+    (two 8 wide, one 16 wide), through the wrapper and through the C
+    entry into an output filled with a sentinel; windows, phases and output
+    4, 8 and 12 bytes off a 16-byte boundary; a 4-wide or 4-tall sub-PU
+    refused."""
+    rng = np.random.default_rng(160 + 2 * dx + dy + bd)
+    counts = _block_counts(2 if dx == 8 else 1)
+    case = T.dmvr_case(rng, max(counts), dx, dy, bd)
+    bil = RK._bilinear_table(torch.device("cpu"))
+    kw = dict(bd=bd, dx=dx, dy=dy)
+    want = RK.dmvr_search_plain(*(torch.from_numpy(a) for a in case), **kw)
+    # the crafted sub-PUs: the centre wins its tie (x stays 0); of the five
+    # offsets that tie a row above it, the first in raster order (-2, -1)
+    # wins; the flat windows stop early at (0, 0), cost 0
+    assert want[0, 0] == 0 and want[:2, 1].tolist() == [-32, -16]
+    assert want[:, 2].tolist() == [0, 0, 0]
+    for n in counts:
+        args = [torch.from_numpy(a[:n].copy()) for a in case]
+        np.testing.assert_array_equal(RK.dmvr_search_cuda(*args, **kw).numpy(),
+                                      want[:, :n].numpy())
+        out = torch.full((3, n), -12345, dtype=torch.int32)
+        assert lib.vtm_dmvr_search(*(a.data_ptr() for a in args), bil.data_ptr(), n, dx,
+                                   dy, bd, out.data_ptr(), None) == 0
+        np.testing.assert_array_equal(out.numpy(), want[:, :n].numpy())
+    n = counts[-1]
+    for k in (1, 2, 3):
+        args = [_at_word(a, k) for a in case]
+        out = _at_word(np.full((3, n), -12345), k)
+        ptrs = [a.data_ptr() for a in args] + [bil.data_ptr(), n]
+        assert lib.vtm_dmvr_search(*ptrs, dx, dy, bd, out.data_ptr(), None) == 0
+        np.testing.assert_array_equal(out.numpy(), want.numpy())
+    for size in ((4, dy), (dx, 4)):
+        assert lib.vtm_dmvr_search(*ptrs, *size, bd, out.data_ptr(), None) != 0
 
 
 @pytest.mark.parametrize("bd", [8, 10])
@@ -609,16 +663,19 @@ def test_bdof_blend(lib, emu_launch, w, h, bd):
 
 @pytest.mark.parametrize("w,h", [(8, 8), (16, 16)])
 def test_bdof_blend_unaligned(lib, w, h):
-    """Predictions and output 4 bytes off a 16-byte boundary give the same
-    result; a 4-wide sub-block is refused."""
+    """Predictions and output 4, 8 and 12 bytes off a 16-byte boundary (the
+    staged spans' ragged ends at every length) give the same result; a
+    4-wide sub-block is refused."""
     rng = np.random.default_rng(120 + w)
     n = _bdof_counts(w, h)[2]
-    p0, p1 = (_misaligned(a) for a in T.bdof_case(rng, n, w, h, 10))
-    out = _misaligned(np.full((n, h, w), -12345, dtype=np.int32))
-    assert lib.vtm_bdof_blend(p0.data_ptr(), p1.data_ptr(), n, w, h, 10,
-                              out.data_ptr(), None) == 0
-    np.testing.assert_array_equal(out.numpy(),
-                                  RK.bdof_blend_batch_plain(p0, p1, 10, w, h).numpy())
+    case = T.bdof_case(rng, n, w, h, 10)
+    want = RK.bdof_blend_batch_plain(*(torch.from_numpy(a) for a in case), 10, w, h)
+    for k in (1, 2, 3):
+        p0, p1 = (_at_word(a, k) for a in case)
+        out = _at_word(np.full((n, h, w), -12345, dtype=np.int32), k)
+        assert lib.vtm_bdof_blend(p0.data_ptr(), p1.data_ptr(), n, w, h, 10,
+                                  out.data_ptr(), None) == 0
+        np.testing.assert_array_equal(out.numpy(), want.numpy())
     assert lib.vtm_bdof_blend(p0.data_ptr(), p1.data_ptr(), n, 4, h, 10,
                               out.data_ptr(), None) != 0
 

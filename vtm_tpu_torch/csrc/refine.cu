@@ -2,12 +2,27 @@
 //
 // Replaces, in vtm_tpu/ops/refine_kernel.py:
 //   * dmvr_search (with _bilinear_batch and _div_for_maxq7) -> vtm_dmvr_search:
-//     one thread block per sub-PU.  Both 2-tap bilinear search grids
-//     ((dx+4) x (dy+4), at most 20x20) are built in shared memory, one
-//     thread per offset computes the 25 even-row SADs, and one thread
-//     applies the early-termination bias, the tie rule (the centre wins any
-//     tie with the minimum; else the first minimum in raster order) and
-//     the sub-pel error surface.
+//     one instantiation per sub-PU size (dx, dy in {8, 16}), so every loop
+//     has a constant trip count.  A team of 96 threads (64 when dx = 8, two
+//     teams a block) takes one sub-PU.  All global loads are issued in one
+//     wave at the start: both lists' prefetch windows (one contiguous span
+//     a list for the block's sub-PUs, whole 16-byte quads), the four phases
+//     and the 32-int bilinear table; no load depends on another load's
+//     value.  Both 2-tap search grids ((dy+4) x (dx+4)) are built in one
+//     pass from shared memory, a thread half a column (each window row's
+//     horizontal pass once; every phase case computed, one selected).
+//     Then the team's first warp alone: lane (dmy, q) loads whole g0 and
+//     g1 rows with 16-byte loads and takes the five SADs of dmx = -2..2 of
+//     its even rows in registers; the four lanes of a dmy combine by
+//     shuffles; lane k < 25 takes offset k's cost (the centre biased by
+//     3/4) and its sub-pel deltas (branch-free); two warp reductions give
+//     the first minimum (the least cost, then the least lane that has it),
+//     the centre wins any tie with it, and one lane applies early
+//     termination and the winner's deltas.  No barrier after the grids.
+//     (One lane an (offset, even row) pair, 32 shared loads each, and the
+//     costs through shared memory to a last phase, ran slower at the
+//     decoder's calls: at three blocks an SM the issue work and the
+//     dependent steps a sub-PU set the time.)
 //   * fir_blocks and dmvr_final_pack -> vtm_fir_blocks: the two-pass FIR
 //     of the jax form over each job's own buffer (rows and columns of the
 //     window clamped into it), first pass (sum + off1) >> s1, sums wrapping
@@ -26,27 +41,83 @@
 //     the outputs in shared memory for 16-byte stores ran slower: more
 //     shared memory a block, fewer blocks, a store phase after the
 //     passes.)  No division in the per-sample path; 32-bit offsets.
-//   * bdof_blend_batch -> vtm_bdof_blend: one thread block per sub-block
-//     (h, w in {8, 16}).  Gradients and the per-sample products are made
-//     once per inner sample in shared memory; the replicated ring of the
-//     jax form is a clamp of the inner index; one thread per 4x4 takes the
-//     6x6 window sums and the flow (vx, vy); then every sample blends.
+//   * bdof_blend_batch -> vtm_bdof_blend: one instantiation per sub-block
+//     size (w, h in {8, 16}); a 64-thread block takes 64 / (h w / 4)
+//     sub-blocks (one at 16x16, four at 8x8), a thread a run of four
+//     samples (a row of one 4x4).  Both extended predictions arrive in one
+//     wave of whole 16-byte quads.  A thread takes its run's gradients and
+//     five window operands (|gx|, |gy|, sgn(gx) di, sgn(gy) di,
+//     sgn(gy) gx) in registers, and the run's 6-wide row sums with their
+//     two ends from the neighbouring runs' lanes by shuffles (at the
+//     sub-block's edges the ring's clamp: its own first or last sample);
+//     it keeps the gradient differences and prediction sums for the blend.
+//     After one barrier each thread takes the 6-tall column sums of its
+//     4x4 and the flow (vx, vy) (the four runs of a 4x4 each take it, so
+//     no barrier stands between the flow and the blend), then blends its
+//     run.  (One thread a sample, with the row sums by shuffles or through
+//     shared memory and one thread a 4x4 for the flow, ran slower at the
+//     decoder's calls: at three blocks an SM the issue work a sub-block
+//     sets the time.)
 //
 // int32 semantics: jax wraps and shifts negatives arithmetically; every
 // left shift of a possibly negative value and every sum that could
-// overflow is done in uint32_t and cast back.
+// overflow is done in uint32_t and cast back.  Exactness of the split sums:
+// every SAD and every window sum that the jax form wraps is taken in
+// uint32_t, where addition is addition mod 2^32 and so associative and
+// commutative; a sum split over lanes and combined in any order (the
+// search: two rows a lane, then a shuffle tree; the blend: a run's four
+// samples plus its two ends from the neighbouring lanes, then the column
+// sums) equals the jax form's sum; a term taken twice (a clamped end) is
+// added twice.  The shifts of negative values (div_for_maxq7, axis_delta,
+// the flow's `>> floor_log2`) keep the forms of the jax kernel.
 //
-// Bound on the H100: bytes.  All three are small per sub-PU (a 23x23
-// window in, 12 bytes out for the search; 16x16 samples for the others);
-// at the decoder's batch sizes of tens to thousands of sub-PUs launch and
-// job upload set their time, at a 1080p picture's thousands the bytes:
-// the FIR reads each buffer sample once and writes each output once.
+// Bound on the H100: bytes.  At the decoder's calls of tens to hundreds of
+// sub-PUs (at most three blocks an SM) the launch floor, one load round
+// trip and the chain of dependent steps after it, slowed by each SM's
+// issue work for its blocks, set the time; the designs above keep both
+// short.  The search reads a (dy+7) x (dx+7) window per list and writes 12
+// bytes per sub-PU; the FIR reads each buffer sample once and writes each
+// output once; the blend reads two (h+2) x (w+2) blocks and writes h x w
+// samples.
 
 #include "fir.cuh"
 
-constexpr int DMVR_MAX_GRID = 20 * 20;  // (16 + 4) x (16 + 4)
 constexpr int DMVR_OFFSETS = 25;
 constexpr int DMVR_CENTRE = 12;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// A span of `count` ints staged into shared memory as whole 16-byte quads
+// by a block of NT threads, in two steps so that several spans' loads are
+// in flight together: load() issues every global load into registers,
+// store() writes dst[lead + i] = src[i] (lead: src's word offset in its
+// quad; dst 16-byte aligned, 4 MAXQ words).  The first and the last quad
+// may hold up to three words outside the span, each in the same 16 bytes
+// as a word of it (so in the same page); they are never used.
+template <int MAXQ, int NT>
+struct QuadStage {
+  static constexpr int K = (MAXQ + NT - 1) / NT;
+  int4 q[K];
+  int lead, nq;
+
+  __device__ __forceinline__ void load(const int* __restrict__ src, int count) {
+    lead = (int)(((uintptr_t)src >> 2) & 3);
+    nq = count > 0 ? (lead + count + 3) >> 2 : 0;
+    const int4* s4 = reinterpret_cast<const int4*>(src - lead);
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if ((int)threadIdx.x + k * NT < nq) q[k] = s4[threadIdx.x + k * NT];
+  }
+
+  __device__ __forceinline__ void store(int* __restrict__ dst) const {
+    int4* d4 = reinterpret_cast<int4*>(dst);
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if ((int)threadIdx.x + k * NT < nq) d4[threadIdx.x + k * NT] = q[k];
+  }
+};
+
+// quads that hold a span of `words` ints at any word offset
+constexpr int span_quads(int words) { return (words + 3 + 3) / 4; }
 
 __device__ __forceinline__ int div_for_maxq7(int num, int den) {
   // xDivForMaxq7 exactly as the jax form computes it for any den
@@ -65,91 +136,177 @@ __device__ __forceinline__ int div_for_maxq7(int num, int den) {
 }
 
 __device__ __forceinline__ int axis_delta(int sa, int sb, int sc) {
+  // the jax form's three cases, each computed and one selected (no branch)
   const int num = (int)((uint32_t)(sa - sb) << 4);
   const int den = sa + sb - (int)((uint32_t)sc << 1);
-  if (den == 0) return 0;
-  if (sa != sc && sb != sc) return div_for_maxq7(num, den);
-  return sa == sc ? -8 : 8;
+  const int q = div_for_maxq7(num, den);
+  const int d = (sa != sc && sb != sc) ? q : (sa == sc ? -8 : 8);
+  return den == 0 ? 0 : d;
 }
 
-__global__ void dmvr_search_kernel(const int* __restrict__ pre0,
-                                   const int* __restrict__ pre1,
-                                   const int* __restrict__ f0x,
-                                   const int* __restrict__ f0y,
-                                   const int* __restrict__ f1x,
-                                   const int* __restrict__ f1y,
-                                   const int* __restrict__ bil, int n, int dx,
-                                   int dy, int bd, int* __restrict__ out) {
-  __shared__ int grid[2][DMVR_MAX_GRID];
-  __shared__ int cost[DMVR_OFFSETS];
-  const int sp = blockIdx.x;
-  const int gw = dx + 4, gh = dy + 4, pw = dx + 7, ph = dy + 7;
-  const int s = 4 - (10 - bd);
-  const int off = 1 << (s - 1);
-  for (int l = 0; l < 2; ++l) {
-    const int* pre = (l ? pre1 : pre0) + (long long)sp * ph * pw;
-    const int fx = (l ? f1x : f0x)[sp], fy = (l ? f1y : f0y)[sp];
-    const int cx0 = bil[clampi(fx, 16) * 2], cx1 = bil[clampi(fx, 16) * 2 + 1];
-    const int cy0 = bil[clampi(fy, 16) * 2], cy1 = bil[clampi(fy, 16) * 2 + 1];
-    for (int e = threadIdx.x; e < gh * gw; e += blockDim.x) {
-      const int i = e / gw, j = e % gw;
-      const int* r0 = pre + (1 + i) * pw + 1 + j;  // src[i][j], grid origin (1, 1)
-      const int* r1 = r0 + pw;
-      int v;
-      if (fx == 0 && fy == 0) {
-        v = r0[0] << (10 - bd);
-      } else if (fy == 0) {
-        v = (cx0 * r0[0] + cx1 * r0[1] + off) >> s;
-      } else if (fx == 0) {
-        v = (cy0 * r0[0] + cy1 * r1[0] + off) >> s;
-      } else {
-        const int t0 = (cx0 * r0[0] + cx1 * r0[1] + off) >> s;
-        const int t1 = (cx0 * r1[0] + cx1 * r1[1] + off) >> s;
-        v = (cy0 * t0 + cy1 * t1 + 8) >> 4;
+template <int DX, int DY>
+struct DmvrShape {
+  static constexpr int PW = DX + 7, PH = DY + 7, WIN = PW * PH;  // a prefetch window
+  static constexpr int GW = DX + 4, GH = DY + 4;                 // a search grid
+  static constexpr int GS = (GW + 3) & ~3;  // a grid row's stride: rows 16-byte aligned
+  static constexpr int ROWS = DY / 2;                            // the SAD's even rows
+  // grid threads: (list, column, half of the rows)
+  static constexpr int GRUN = GH / 2, GRID_THREADS = 4 * GW;
+  static constexpr int TEAM = (GRID_THREADS + 31) / 32 * 32;    // threads a sub-PU
+  static constexpr int PER = DX == 8 ? 2 : 1;                    // sub-PUs a block
+  static constexpr int THREADS = PER * TEAM;                     // 96 or 128
+  static constexpr int MAXQ = span_quads(PER * WIN);             // a list's staged quads
+};
+
+__device__ __forceinline__ int tap2(int ca, int cb, int va, int vb, uint32_t o) {
+  return (int)((uint32_t)ca * (uint32_t)va + (uint32_t)cb * (uint32_t)vb + o);
+}
+
+// A team of S::TEAM threads a sub-PU, S::PER sub-PUs a block.
+template <int DX, int DY>
+__global__ void __launch_bounds__(DmvrShape<DX, DY>::THREADS)
+    dmvr_search_kernel(const int* __restrict__ pre0, const int* __restrict__ pre1,
+                       const int* __restrict__ f0x, const int* __restrict__ f0y,
+                       const int* __restrict__ f1x, const int* __restrict__ f1y,
+                       const int* __restrict__ bil, int n, int bd, int* __restrict__ out) {
+  using S = DmvrShape<DX, DY>;
+  __shared__ __align__(16) int s_win[2][4 * S::MAXQ];
+  __shared__ __align__(16) int s_grid[S::PER][2][S::GH * S::GS];
+  __shared__ int s_bil[32];
+  const int t = threadIdx.x;
+  const int team = t / S::TEAM, tl = t - team * S::TEAM;
+  const int sp0 = blockIdx.x * S::PER;
+  const int nsp = min(S::PER, n - sp0);
+  const int sp = sp0 + team;
+  const bool active = team < nsp;
+
+  // 1. every global load in one wave: both lists' windows of the block's
+  // sub-PUs, the phases, the bilinear table
+  QuadStage<S::MAXQ, S::THREADS> w0, w1;
+  w0.load(pre0 + (size_t)sp0 * S::WIN, nsp * S::WIN);
+  w1.load(pre1 + (size_t)sp0 * S::WIN, nsp * S::WIN);
+  int fx0 = 0, fy0 = 0, fx1 = 0, fy1 = 0, bv = 0;
+  if (active) {
+    fx0 = f0x[sp];
+    fy0 = f0y[sp];
+    fx1 = f1x[sp];
+    fy1 = f1y[sp];
+  }
+  if (t < 32) bv = bil[t];
+  w0.store(s_win[0]);
+  w1.store(s_win[1]);
+  if (t < 32) s_bil[t] = bv;
+  __syncthreads();
+
+  // 2. both 2-tap grids: thread (list l, column j, half of the rows from
+  // i0) takes the horizontal pass of window rows 1 + i0 .. 1 + i0 + GRUN
+  // once each and the vertical pass between neighbours; every phase case
+  // of the jax form is computed and one selected (no branch per sample)
+  if (active && tl < S::GRID_THREADS) {
+    const bool l = tl >= 2 * S::GW;
+    const int g = l ? tl - 2 * S::GW : tl;
+    const int i0 = g >= S::GW ? S::GRUN : 0, j = g >= S::GW ? g - S::GW : g;
+    const int fx = l ? fx1 : fx0, fy = l ? fy1 : fy0;
+    const int cx0 = s_bil[clampi(fx, 16) * 2], cx1 = s_bil[clampi(fx, 16) * 2 + 1];
+    const int cy0 = s_bil[clampi(fy, 16) * 2], cy1 = s_bil[clampi(fy, 16) * 2 + 1];
+    const int s = 4 - (10 - bd);
+    const uint32_t off = 1u << (s - 1);
+    const int* w = s_win[l] + (l ? w1.lead : w0.lead) + team * S::WIN + (1 + i0) * S::PW + 1 + j;
+    int* o = s_grid[team][l] + i0 * S::GS + j;
+    int ra[S::GRUN + 1], rb[S::GRUN + 1];
+#pragma unroll
+    for (int u = 0; u <= S::GRUN; ++u) {
+      ra[u] = w[u * S::PW];
+      rb[u] = w[u * S::PW + 1];
+    }
+    int hp = tap2(cx0, cx1, ra[0], rb[0], off) >> s;
+#pragma unroll
+    for (int u = 0; u < S::GRUN; ++u) {
+      const int h = tap2(cx0, cx1, ra[u + 1], rb[u + 1], off) >> s;
+      const int hv = tap2(cy0, cy1, hp, h, 8) >> 4;                // both phases
+      const int vy = tap2(cy0, cy1, ra[u], ra[u + 1], off) >> s;  // vertical only
+      const int z = (int)((uint32_t)ra[u] << (10 - bd));         // integer position
+      o[u * S::GS] = fx == 0 ? (fy == 0 ? z : vy) : (fy == 0 ? hp : hv);
+      hp = h;
+    }
+  }
+  __syncthreads();
+
+  // 3. the team's first warp alone: lane (dmy, q), 20 lanes, takes the
+  // even rows r = q + 4 p of dmy, whole rows: g0 row 2 + dmy + 2 r and g1
+  // row 2 - dmy + 2 r in registers (16-byte loads) and the five SADs of
+  // dmx = -2..2; the four lanes of a dmy combine by shuffles
+  if (!active || tl >= 32) return;
+  constexpr int RQ = S::ROWS / 4, NQ = (DX + 4) / 4;
+  const int dmy = tl / 4 - 2, q = tl % 4;
+  uint32_t sad[5] = {0, 0, 0, 0, 0};
+  if (tl < 20) {
+#pragma unroll
+    for (int p = 0; p < RQ; ++p) {
+      const int r = q + 4 * p;
+      const int4* pa = reinterpret_cast<const int4*>(s_grid[team][0] + (2 + dmy + 2 * r) * S::GS);
+      const int4* pb = reinterpret_cast<const int4*>(s_grid[team][1] + (2 - dmy + 2 * r) * S::GS);
+      int a[4 * NQ], b[4 * NQ];
+#pragma unroll
+      for (int k = 0; k < NQ; ++k) {
+        const int4 va = pa[k], vb = pb[k];
+        a[4 * k] = va.x, a[4 * k + 1] = va.y, a[4 * k + 2] = va.z, a[4 * k + 3] = va.w;
+        b[4 * k] = vb.x, b[4 * k + 1] = vb.y, b[4 * k + 2] = vb.z, b[4 * k + 3] = vb.w;
       }
-      grid[l][e] = v;
+#pragma unroll
+      for (int k = 0; k < 5; ++k)
+#pragma unroll
+        for (int c = 0; c < DX; ++c)
+          sad[k] += (uint32_t)abs((int)((uint32_t)a[k + c] - (uint32_t)b[4 - k + c]));
     }
   }
-  __syncthreads();
-  if (threadIdx.x < DMVR_OFFSETS) {
-    const int dmx = threadIdx.x % 5 - 2, dmy = threadIdx.x / 5 - 2;
-    const int* a = grid[0] + (2 + dmy) * gw + 2 + dmx;
-    const int* b = grid[1] + (2 - dmy) * gw + 2 - dmx;
-    uint32_t sad = 0;
-    for (int r = 0; r < dy; r += 2)
-      for (int c = 0; c < dx; ++c) sad += (uint32_t)abs(a[r * gw + c] - b[r * gw + c]);
-    cost[threadIdx.x] = (int)sad;
+#pragma unroll
+  for (int m = 1; m < 4; m <<= 1)
+#pragma unroll
+    for (int k = 0; k < 5; ++k) sad[k] += (uint32_t)__shfl_xor_sync(FULL_MASK, (int)sad[k], m);
+
+  // 4. lane k < 25: offset k's cost (from lane 4 (k / 5), its SAD k % 5;
+  // the centre biased by 3/4) and its sub-pel deltas as if it won; the
+  // first minimum by two warp reductions (the least cost, then the least
+  // lane that has it); the centre wins any tie with it; the winner's
+  // deltas by one shuffle each; one lane writes
+  int c = 0;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const int v = __shfl_sync(FULL_MASK, (int)sad[k], 4 * (tl / 5));
+    if (tl % 5 == k) c = v;
   }
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  const int c00 = cost[DMVR_CENTRE];
+  const int c00 = __shfl_sync(FULL_MASK, c, DMVR_CENTRE);
   const int minc0 = c00 - (c00 >> 2);
-  cost[DMVR_CENTRE] = minc0;
-  const bool early = minc0 < dx * dy;
-  int min_cost = cost[0], best = 0;
-  for (int k = 1; k < DMVR_OFFSETS; ++k) {
-    if (cost[k] < min_cost) {
-      min_cost = cost[k];
-      best = k;
-    }
-  }
+  auto cost_at = [&](int k) {
+    k = clampi(k, DMVR_OFFSETS);
+    const int v = __shfl_sync(FULL_MASK, c, k);
+    return k == DMVR_CENTRE ? minc0 : v;
+  };
+  const int cost = tl < DMVR_OFFSETS ? (tl == DMVR_CENTRE ? minc0 : c) : INT_MAX;
+  const int ddx = axis_delta(cost_at(tl - 1), cost_at(tl + 1), cost);
+  const int ddy = axis_delta(cost_at(tl - 5), cost_at(tl + 5), cost);
+  int min_cost = __reduce_min_sync(FULL_MASK, cost);
+  int best = __reduce_min_sync(FULL_MASK, cost == min_cost ? tl : INT_MAX);
   if (minc0 == min_cost) best = DMVR_CENTRE;
-  int bx = best % 5 - 2, by = best / 5 - 2;
-  if (early) {
-    bx = by = 0;
-    min_cost = minc0;
+  const int bdx = __shfl_sync(FULL_MASK, ddx, best);
+  const int bdy = __shfl_sync(FULL_MASK, ddy, best);
+  if (tl == 0) {
+    const bool early = minc0 < DX * DY;
+    int bx = best % 5 - 2, by = best / 5 - 2;
+    if (early) {
+      bx = by = 0;
+      min_cost = minc0;
+    }
+    int total_x = bx * 16, total_y = by * 16;
+    if (!early && abs(bx) != 2 && abs(by) != 2) {
+      total_x += bdx;
+      total_y += bdy;
+    }
+    out[sp] = total_x;
+    out[n + sp] = total_y;
+    out[2 * n + sp] = min_cost;
   }
-  int total_x = bx * 16, total_y = by * 16;
-  if (!early && abs(bx) != 2 && abs(by) != 2) {
-    auto nb = [&](int ddy, int ddx) {
-      return cost[clampi((by + 2 + ddy) * 5 + (bx + 2 + ddx), DMVR_OFFSETS)];
-    };
-    total_x += axis_delta(nb(0, -1), nb(0, 1), min_cost);
-    total_y += axis_delta(nb(-1, 0), nb(1, 0), min_cost);
-  }
-  out[sp] = total_x;
-  out[n + sp] = total_y;
-  out[2 * n + sp] = min_cost;
 }
 
 // ---------------------------------------------------------------------------
@@ -293,110 +450,183 @@ __global__ void __launch_bounds__(FIR_THREADS)
   }
 }
 
-constexpr int BDOF_MAX = 16;
-constexpr int BDOF_EXT = (BDOF_MAX + 2) * (BDOF_MAX + 2);
-constexpr int BDOF_INNER = BDOF_MAX * BDOF_MAX;
-constexpr int BDOF_SUBBLOCKS = (BDOF_MAX / 4) * (BDOF_MAX / 4);
-
 __device__ __forceinline__ int floor_log2_sat19(int x) {
   // the jax form counts x >= 2^i for i in 1..19, so it saturates at 19
-  int lg = 0;
-#pragma unroll
-  for (int i = 1; i < 20; ++i) lg += (int)(x >= (1 << i));
-  return lg;
+  // (x >= 1 here: floor(log2 x), at most 19)
+  return min(31 - __clz(x), 19);
 }
 
-__global__ void bdof_blend_kernel(const int* __restrict__ p0e,
-                                  const int* __restrict__ p1e, int w, int h,
-                                  int bd, int* __restrict__ out) {
-  // per inner sample (i, j): the five window operands, the two gradient
-  // differences and the sum of both predictions
-  __shared__ int s_agx[BDOF_INNER], s_agy[BDOF_INNER], s_dix[BDOF_INNER],
-      s_diy[BDOF_INNER], s_sgn[BDOF_INNER], s_gdx[BDOF_INNER],
-      s_gdy[BDOF_INNER], s_psum[BDOF_INNER];
-  __shared__ int s_vx[BDOF_SUBBLOCKS], s_vy[BDOF_SUBBLOCKS];
-  const int sb = blockIdx.x;
-  const int we = w + 2;
-  const int* a = p0e + (long long)sb * (h + 2) * we;
-  const int* b = p1e + (long long)sb * (h + 2) * we;
-  for (int e = threadIdx.x; e < h * w; e += blockDim.x) {
-    const int i = e / w, j = e % w;
-    const int c = (1 + i) * we + 1 + j;  // centre in the extended block
-    const int gx0 = (a[c + 1] >> 6) - (a[c - 1] >> 6);
-    const int gy0 = (a[c + we] >> 6) - (a[c - we] >> 6);
-    const int gx1 = (b[c + 1] >> 6) - (b[c - 1] >> 6);
-    const int gy1 = (b[c + we] >> 6) - (b[c - we] >> 6);
-    const int tgx = (gx0 + gx1) >> 1, tgy = (gy0 + gy1) >> 1;
-    const int tdi = (b[c] >> 4) - (a[c] >> 4);
-    s_agx[e] = abs(tgx);
-    s_agy[e] = abs(tgy);
-    s_dix[e] = sgn(tgx) * tdi;
-    s_diy[e] = sgn(tgy) * tdi;
-    s_sgn[e] = sgn(tgy) * tgx;
-    s_gdx[e] = gx0 - gx1;
-    s_gdy[e] = gy0 - gy1;
-    s_psum[e] = (int)((uint32_t)a[c] + (uint32_t)b[c]);
-  }
+constexpr int BDOF_THREADS = 64;  // threads a block of the blend
+
+template <int W, int H>
+struct BdofShape {
+  static constexpr int EW = W + 2, EXT = (H + 2) * EW;     // an extended block
+  static constexpr int HW = H * W;
+  static constexpr int NBX = W / 4;                        // 4x4 columns a sub-block
+  static constexpr int RUNS = H * NBX;                      // threads a sub-block
+  static constexpr int PER = BDOF_THREADS / RUNS;          // sub-blocks a block
+  static constexpr int MAXQ = span_quads(PER * EXT);       // a list's staged quads
+};
+
+// A thread a run of four samples (a row of one 4x4), S::PER sub-blocks a
+// block.
+template <int W, int H>
+__global__ void __launch_bounds__(BDOF_THREADS)
+    bdof_blend_kernel(const int* __restrict__ p0e, const int* __restrict__ p1e, int n,
+                      int bd, int* __restrict__ out) {
+  using S = BdofShape<W, H>;
+  __shared__ __align__(16) int s_ext[2][4 * S::MAXQ];
+  // the five window operands' 6-wide row sums: [operand][sub-block row][4x4 column]
+  __shared__ int s_row[5][S::PER * H][S::NBX];
+  const int t = threadIdx.x;
+  const int sbl = t / S::RUNS, ri = t - sbl * S::RUNS;
+  const int i = ri / S::NBX, bx = ri - i * S::NBX;  // row i, samples 4 bx .. 4 bx + 3
+  const int sb0 = blockIdx.x * S::PER;
+  const int nsb = min(S::PER, n - sb0);
+  const bool active = sbl < nsb;
+
+  // 1. both extended predictions in one wave
+  QuadStage<S::MAXQ, BDOF_THREADS> a, b;
+  a.load(p0e + (size_t)sb0 * S::EXT, nsb * S::EXT);
+  b.load(p1e + (size_t)sb0 * S::EXT, nsb * S::EXT);
+  a.store(s_ext[0]);
+  b.store(s_ext[1]);
   __syncthreads();
-  const int nbx = w / 4, nby = h / 4;
-  if (threadIdx.x < nbx * nby) {
-    const int bx = threadIdx.x % nbx, by = threadIdx.x / nbx;
-    uint32_t agx = 0, agy = 0, dix = 0, diy = 0, sgs = 0;
-    // 6x6 window at stride 4 over the ring-extended grid: extended index
-    // (4 by + u, 4 bx + v) is inner (clamp(4 by + u - 1), clamp(4 bx + v - 1))
-    for (int u = 0; u < 6; ++u) {
-      const int ii = clampi(4 * by + u - 1, h);
-      for (int v = 0; v < 6; ++v) {
-        const int e = ii * w + clampi(4 * bx + v - 1, w);
-        agx += (uint32_t)s_agx[e];
-        agy += (uint32_t)s_agy[e];
-        dix += (uint32_t)s_dix[e];
-        diy += (uint32_t)s_diy[e];
-        sgs += (uint32_t)s_sgn[e];
+
+  // 2. the run's four samples: their gradients and window operands in
+  // registers (every thread, so that all lanes take part in the shuffles;
+  // a thread past the last sub-block reads words that were not loaded and
+  // stores nothing),
+  // the gradient differences and prediction sums kept for the blend; the
+  // row's 6-wide sums of the five operands to shared memory, their ends
+  // (inner columns 4 bx - 1 and 4 bx + 4) the neighbouring runs' last and
+  // first samples by shuffles, or at the sub-block's edges (the ring's
+  // clamp) this run's first and last
+  int gdx[4], gdy[4], psum[4];
+  uint32_t own[5] = {0, 0, 0, 0, 0}, first[5], last[5];
+  {
+    // extended row i + 1 at columns 4 bx .. 4 bx + 5, rows i and i + 2 at
+    // columns 4 bx + 1 .. 4 bx + 4
+    int mid[2][6], up[2][4], dn[2][4];
+#pragma unroll
+    for (int l = 0; l < 2; ++l) {
+      const int* e = s_ext[l] + (l ? b.lead : a.lead) + sbl * S::EXT + i * S::EW + 4 * bx;
+#pragma unroll
+      for (int m = 0; m < 6; ++m) mid[l][m] = e[S::EW + m];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        up[l][m] = e[1 + m];
+        dn[l][m] = e[2 * S::EW + 1 + m];
       }
     }
-    const int limit = 15;
-    const int sum_abs_gx = (int)agx, sum_abs_gy = (int)agy;
-    const int sum_sign = (int)sgs;
-    int tmpx = 0;
-    if (sum_abs_gx != 0)
-      tmpx = clip3(-limit, limit, (int)(dix << 2) >> floor_log2_sat19(max(sum_abs_gx, 1)));
-    const int mains = sum_sign >> 12, secs = sum_sign & 4095;
-    const uint32_t td = (((uint32_t)tmpx * (uint32_t)mains) << 12) +
-                        (uint32_t)tmpx * (uint32_t)secs;
-    const int tmp_data = (int)td >> 1;
-    int tmpy = 0;
-    if (sum_abs_gy != 0)
-      tmpy = clip3(-limit, limit,
-                   (int)((diy << 2) - (uint32_t)tmp_data) >>
-                       floor_log2_sat19(max(sum_abs_gy, 1)));
-    s_vx[threadIdx.x] = tmpx;
-    s_vy[threadIdx.x] = tmpy;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int gx0 = (mid[0][m + 2] >> 6) - (mid[0][m] >> 6);
+      const int gy0 = (dn[0][m] >> 6) - (up[0][m] >> 6);
+      const int gx1 = (mid[1][m + 2] >> 6) - (mid[1][m] >> 6);
+      const int gy1 = (dn[1][m] >> 6) - (up[1][m] >> 6);
+      const int tgx = (gx0 + gx1) >> 1, tgy = (gy0 + gy1) >> 1;
+      const int tdi = (mid[1][m + 1] >> 4) - (mid[0][m + 1] >> 4);
+      const int op[5] = {abs(tgx), abs(tgy), sgn(tgx) * tdi, sgn(tgy) * tdi, sgn(tgy) * tgx};
+#pragma unroll
+      for (int k = 0; k < 5; ++k) {
+        own[k] += (uint32_t)op[k];
+        if (m == 0) first[k] = (uint32_t)op[k];
+        if (m == 3) last[k] = (uint32_t)op[k];
+      }
+      gdx[m] = gx0 - gx1;
+      gdy[m] = gy0 - gy1;
+      psum[m] = (int)((uint32_t)mid[0][m + 1] + (uint32_t)mid[1][m + 1]);
+    }
+  }
+  const int lane = t & 31;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const uint32_t lft = (uint32_t)__shfl_sync(FULL_MASK, (int)last[k], max(lane - 1, 0));
+    const uint32_t rgt = (uint32_t)__shfl_sync(FULL_MASK, (int)first[k], min(lane + 1, 31));
+    const uint32_t rs = own[k] + (bx > 0 ? lft : first[k]) + (bx < S::NBX - 1 ? rgt : last[k]);
+    if (active) s_row[k][sbl * H + i][bx] = (int)rs;
   }
   __syncthreads();
+
+  // 3. the flow (vx, vy) of the run's 4x4, taken by each of its four runs
+  // (so no barrier before the blend): 6-tall column sums of the row sums
+  // (rows -1 and H are rows 0 and H - 1), then the jax form's flow
+  if (!active) return;
+  uint32_t sum[5] = {0, 0, 0, 0, 0};
+#pragma unroll
+  for (int u = 0; u < 6; ++u) {
+    const int ii = sbl * H + clampi(4 * (i >> 2) + u - 1, H);
+#pragma unroll
+    for (int k = 0; k < 5; ++k) sum[k] += (uint32_t)s_row[k][ii][bx];
+  }
+  const int limit = 15;
+  const int sum_abs_gx = (int)sum[0], sum_abs_gy = (int)sum[1];
+  const uint32_t dix = sum[2], diy = sum[3];
+  const int sum_sign = (int)sum[4];
+  int tmpx = 0;
+  if (sum_abs_gx != 0)
+    tmpx = clip3(-limit, limit, (int)(dix << 2) >> floor_log2_sat19(max(sum_abs_gx, 1)));
+  const int mains = sum_sign >> 12, secs = sum_sign & 4095;
+  const uint32_t td = (((uint32_t)tmpx * (uint32_t)mains) << 12) +
+                      (uint32_t)tmpx * (uint32_t)secs;
+  const int tmp_data = (int)td >> 1;
+  int tmpy = 0;
+  if (sum_abs_gy != 0)
+    tmpy = clip3(-limit, limit,
+                 (int)((diy << 2) - (uint32_t)tmp_data) >> floor_log2_sat19(max(sum_abs_gy, 1)));
+  const uint32_t vx = (uint32_t)tmpx, vy = (uint32_t)tmpy;
+
+  // 4. the blend of the run's four samples
   const int shift_num = IF_INTERNAL_PREC + 1 - bd;
   const uint32_t offset = (1u << (shift_num - 1)) + 2u * IF_OFFS;
   const int maxv = (1 << bd) - 1;
-  int* o = out + (long long)sb * h * w;
-  for (int e = threadIdx.x; e < h * w; e += blockDim.x) {
-    const int i = e / w, j = e % w;
-    const int k = (i / 4) * nbx + j / 4;
-    const uint32_t bb = (uint32_t)s_vx[k] * (uint32_t)s_gdx[e] +
-                        (uint32_t)s_vy[k] * (uint32_t)s_gdy[e];
-    o[e] = clip3(0, maxv, (int)((uint32_t)s_psum[e] + bb + offset) >> shift_num);
+  int* o = out + (size_t)(sb0 + sbl) * S::HW + i * W + 4 * bx;
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    const uint32_t bb = vx * (uint32_t)gdx[v] + vy * (uint32_t)gdy[v];
+    o[v] = clip3(0, maxv, (int)((uint32_t)psum[v] + bb + offset) >> shift_num);
   }
 }
 
+template <int DX, int DY>
+static int dmvr_search_launch(const int* pre0, const int* pre1, const int* f0x,
+                              const int* f0y, const int* f1x, const int* f1y,
+                              const int* bil, int n, int bd, int* out, cudaStream_t stream) {
+  using S = DmvrShape<DX, DY>;
+  dmvr_search_kernel<DX, DY><<<(n + S::PER - 1) / S::PER, S::THREADS, 0, stream>>>(
+      pre0, pre1, f0x, f0y, f1x, f1y, bil, n, bd, out);
+  return launch_status();
+}
+
+template <int W, int H>
+static int bdof_blend_launch(const int* p0e, const int* p1e, int n, int bd, int* out,
+                             cudaStream_t stream) {
+  constexpr int per = BdofShape<W, H>::PER;
+  bdof_blend_kernel<W, H><<<(n + per - 1) / per, BDOF_THREADS, 0, stream>>>(
+      p0e, p1e, n, bd, out);
+  return launch_status();
+}
+
+// A sub-PU of dx x dy (8 or 16 each): one instantiation per size; another
+// size is refused.
 VTM_API int vtm_dmvr_search(const int* pre0, const int* pre1, const int* f0x,
                             const int* f0y, const int* f1x, const int* f1y,
                             const int* bilinear, int n, int dx, int dy, int bd,
                             int* out, void* stream) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  if ((dx != 8 && dx != 16) || (dy != 8 && dy != 16))
-    return (int)cudaErrorInvalidValue;
-  dmvr_search_kernel<<<n, 128, 0, (cudaStream_t)stream>>>(
-      pre0, pre1, f0x, f0y, f1x, f1y, bilinear, n, dx, dy, bd, out);
-  return launch_status();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dx == 8 && dy == 8)
+    return dmvr_search_launch<8, 8>(pre0, pre1, f0x, f0y, f1x, f1y, bilinear, n, bd, out, st);
+  if (dx == 16 && dy == 8)
+    return dmvr_search_launch<16, 8>(pre0, pre1, f0x, f0y, f1x, f1y, bilinear, n, bd, out, st);
+  if (dx == 8 && dy == 16)
+    return dmvr_search_launch<8, 16>(pre0, pre1, f0x, f0y, f1x, f1y, bilinear, n, bd, out, st);
+  if (dx == 16 && dy == 16)
+    return dmvr_search_launch<16, 16>(pre0, pre1, f0x, f0y, f1x, f1y, bilinear, n, bd, out,
+                                      st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // ngroups (1..FIR_MAX_GROUPS) job groups: ptrs holds 5 device pointers a
@@ -449,12 +679,16 @@ VTM_API int vtm_fir_blocks(int ngroups, const int* const* ptrs, const int* dims,
   return launch_status();
 }
 
+// A sub-block of w x h (8 or 16 each): one instantiation per size; another
+// size is refused.
 VTM_API int vtm_bdof_blend(const int* p0e, const int* p1e, int n, int w, int h,
                            int bd, int* out, void* stream) {
+  if (n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  if ((w != 8 && w != 16) || (h != 8 && h != 16))
-    return (int)cudaErrorInvalidValue;
-  bdof_blend_kernel<<<n, 256, 0, (cudaStream_t)stream>>>(p0e, p1e, w, h, bd,
-                                                         out);
-  return launch_status();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (w == 8 && h == 8) return bdof_blend_launch<8, 8>(p0e, p1e, n, bd, out, st);
+  if (w == 16 && h == 8) return bdof_blend_launch<16, 8>(p0e, p1e, n, bd, out, st);
+  if (w == 8 && h == 16) return bdof_blend_launch<8, 16>(p0e, p1e, n, bd, out, st);
+  if (w == 16 && h == 16) return bdof_blend_launch<16, 16>(p0e, p1e, n, bd, out, st);
+  return (int)cudaErrorInvalidValue;
 }

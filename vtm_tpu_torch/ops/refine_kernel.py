@@ -6,11 +6,12 @@ xProcessDMVR / xBIPMVRefine / xDMVRCost / xSubPelErrorSrfc /
 applyBiOptFlow), batched over 16x16-class sub-PUs.
 
 * CPU tensors: `*_plain`.
-* CUDA tensors: csrc/refine.cu: `vtm_dmvr_search` (one thread block per
-  sub-PU), `vtm_fir_blocks` (up to MAX_GROUPS groups of jobs a launch, a
-  thread block a run of a group's jobs, a thread a job's column; one
-  launch for all of `dmvr_final_pack`) and `vtm_bdof_blend` (one thread
-  block per sub-block).
+* CUDA tensors: csrc/refine.cu: `vtm_dmvr_search` (a thread block of 96
+  threads a 16-wide sub-PU, of 128 two 8-wide ones; the SAD and the
+  minimum in one warp), `vtm_fir_blocks` (up to MAX_GROUPS groups of jobs
+  a launch, a thread block a run of a group's jobs, a thread a job's
+  column; one launch for all of `dmvr_final_pack`) and `vtm_bdof_blend`
+  (a thread a row of one 4x4, 64-thread blocks).
 """
 
 from __future__ import annotations
