@@ -14,8 +14,8 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    (ptxas -v; a template instantiation with its arguments), and the
    deblocking tile kernels' launch shape (resident blocks an SM); an RMD
    kernel that spills, or an MC, ALF-filter, ALF-classifier, luma
-   deblocking tile, FIR, DMVR-search, BDOF, RMD-reduction or
-   register-tiled inverse transform kernel with a stack frame or spills,
+   deblocking tile, FIR, DMVR-search, BDOF, RMD-reduction, register-tiled
+   inverse transform, SATD or SAO kernel with a stack frame or spills,
    fails;
 3. each kernel against its plain torch version, exactly:
    - the filter kernels on the real chain inputs of POC 0 of
@@ -55,8 +55,9 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
      plane, and of a one-tile launch of the delta and of the classifier (a
      launch's floors); the classifier and the luma ALF filter on one
      248-column shard as the sharded chain pads it; the extended-plane SAO
-     on the eight VER shards; the recon/SSE epilogue on two 1080p planes
-     of 32x32 blocks;
+     on the eight VER shards, and the device time of the torch cat and
+     edge_pad that build a shard's extended plane; the recon/SSE epilogue
+     on two 1080p planes of 32x32 blocks;
    - the multi-device path's MC and reconstruction kernels at the shapes
      its lanes launch them (phase 6's own inputs): vtm_mc_tiles on one
      lane's share of each sharded MC batch (the 1080p-sized seeded batch
@@ -112,9 +113,10 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    those); "shard" for its sharded luma chain, MC and reconstruction,
    each shard case weighed as often as one run launches it; a kernel
    with launches at a shape where none of its cases was timed fails),
-   the extended-plane SAO's shard launches beside a copy of a shard's
-   plane, one JSON line of per-kernel results, then the device line,
-   last.
+   the extended-plane SAO's shard launches beside an empty kernel, a copy
+   of a shard's plane and the two torch calls that extend a shard (what an
+   entry reading the shard and its halo in place would save), one JSON
+   line of per-kernel results, then the device line, last.
 
     python3 chip_smoke.py --versus DIR
 
@@ -138,7 +140,13 @@ checkout's decode, a row a call) and on 8,100 seeded 16x16 sub-PUs and
 sub-blocks; transform.cu and
 common.cuh time the int32 inverse transform on the sharded
 reconstruction's 4,080- and 1,020-block lane slices of 32x32 DCT2 blocks
-and on 1080p-plane batches of the DCT2 sizes 8 to 64.
+and on 1080p-plane batches of the DCT2 sizes 8 to 64; rdcost.cu, satd.cuh
+and common.cuh time the SATD on phase 3's 13 tilings at 8 bits (1920x1080
+samples each); sao.cu and common.cuh time the extended-plane SAO on the
+eight VER shards of each picture of the 1080p stream with luma SAO and of
+POC 0's luma with seeded maps (half the CTUs on), and the plane SAO on
+POC 0's Y, Cb and Cr (a plane without SAO in that picture with seeded
+maps).
 """
 
 from __future__ import annotations
@@ -223,14 +231,15 @@ NO_LOCAL_MEMORY = {
     **dict.fromkeys(("mc_tiles_kernel", "alf_filter_kernel", "fir_blocks_kernel",
                      "rmd_reduce_kernel", "alf_classify_kernel", "luma_tile_kernel",
                      "inv_transform_tile_kernel", "dmvr_search_kernel",
-                     "bdof_blend_kernel"),
+                     "bdof_blend_kernel", "satd_batch_kernel", "sao_kernel"),
                     ("spill_stores", "spill_loads", "stack_frame"))}
 # runs of each sharded stage whose host seconds are compared (median)
 REPEATS = 7
 TRANSFORM_KINDS = ((0, 0), (2, 1), (1, 2), (2, 2), (1, 1))
 # kernels checked and timed in phase 3 that no main path launches by name
-NOT_ON_MAIN_PATH = {"vtm_satd_batch": "its code runs fused inside vtm_rmd_angular "
-                                      "and vtm_rmd_mip (csrc/satd.cuh)",
+NOT_ON_MAIN_PATH = {"vtm_satd_batch": "its tile transform runs fused inside "
+                                      "vtm_rmd_angular and vtm_rmd_mip "
+                                      "(csrc/satd.cuh:warp_satd_tile)",
                     "vtm_inv_transform_s8": "the reference has no caller of its twin "
                                             "(vtm_tpu/ops/transform.py:152) outside "
                                             "its tests; sharded_recon_step uses the "
@@ -871,11 +880,22 @@ def satd_ops(RC, h: int, w: int) -> int:
     return (th * tw).bit_length() - 1 + 2
 
 
+def satd_inputs(rng, dev):
+    """(h, w, bit depth, differences) of every tiling of SATD_SHAPES, 8- and
+    10-bit (numpy-seeded, with the all-max, all-min and checkerboard
+    extremes), 1920x1080 samples a call."""
+    from vtm_tpu_torch import testing as T
+    from vtm_tpu_torch.ops.filter_chain import to_device
+
+    for h, w in SATD_SHAPES:
+        n = 1920 * 1080 // (h * w)
+        for bd in (8, 10):
+            yield h, w, bd, to_device(T.satd_diffs(rng, n, h, w, bd), dev)
+
+
 def check_satd(chk: KernelCheck, dev, seed: int = 11):
-    """vtm_satd_batch against its plain version on numpy-seeded differences
-    of every tiling, 8- and 10-bit (with the all-max, all-min and
-    checkerboard extremes), 1920x1080 samples per call, timed at 8 bits;
-    and on tiles where float32 and float64 normalisation differ."""
+    """vtm_satd_batch against its plain version on satd_inputs, timed at 8
+    bits, and on tiles where float32 and float64 normalisation differ."""
     import numpy as np
 
     from vtm_tpu_torch import testing as T
@@ -883,14 +903,11 @@ def check_satd(chk: KernelCheck, dev, seed: int = 11):
     from vtm_tpu_torch.ops.filter_chain import to_device
 
     rng = np.random.default_rng(seed)
-    for h, w in SATD_SHAPES:
-        n = 1920 * 1080 // (h * w)
-        for bd in (8, 10):
-            d = to_device(T.satd_diffs(rng, n, h, w, bd), dev)
-            chk.compare("vtm_satd_batch", f"{h}x{w} {bd}-bit, {n} blocks",
-                        lambda: RC.satd_batch_cuda(d, h, w),
-                        lambda: RC.satd_batch_plain(d, h, w), timed=bd == 8,
-                        ins=d, ops=d.numel() * satd_ops(RC, h, w))
+    for h, w, bd, d in satd_inputs(rng, dev):
+        chk.compare("vtm_satd_batch", f"{h}x{w} {bd}-bit, {d.shape[0]} blocks",
+                    lambda: RC.satd_batch_cuda(d, h, w),
+                    lambda: RC.satd_batch_plain(d, h, w), timed=bd == 8,
+                    ins=d, ops=d.numel() * satd_ops(RC, h, w))
     for h, w in ((8, 16), (16, 8), (4, 8), (8, 4)):
         # tiles on which float32 and float64 normalisation differ
         d = to_device(T.satd_f32_cases(rng, h, w, 10), dev)
@@ -1030,8 +1047,8 @@ def turns(torch, other_fn, this_fn, iters: int = 10):
 def versus(torch, other: str) -> int:
     """This checkout's kernels against another commit's build of the same
     sources in directory `other`, in one process on one card: the kernels
-    of each of rmd.cu, deblock.cu, mc.cu, alf.cu, refine.cu and transform.cu
-    that `other` holds."""
+    of each of rmd.cu, deblock.cu, mc.cu, alf.cu, refine.cu, transform.cu,
+    rdcost.cu and sao.cu that `other` holds."""
     from vtm_tpu_torch import kernels as KN
 
     print(card_line(), flush=True)
@@ -1039,7 +1056,8 @@ def versus(torch, other: str) -> int:
         print(f"  ptxas: {name}: {r}", flush=True)
     runs = {"rmd.cu": versus_rmd, "deblock.cu": versus_deblock, "mc.cu": versus_mc,
             "alf.cu": versus_alf, "refine.cu": versus_refine,
-            "transform.cu": versus_transform}
+            "transform.cu": versus_transform, "rdcost.cu": versus_satd,
+            "sao.cu": versus_sao}
     ran = [src for src in runs if os.path.exists(os.path.join(other, src))]
     if not ran:
         raise FileNotFoundError(f"{other} holds none of {', '.join(runs)}")
@@ -1509,6 +1527,149 @@ def versus_deblock(torch, KN, other: str) -> None:
         versus_sums(dsums, f"8 {d} shards")
 
 
+def versus_satd(torch, KN, other: str) -> None:
+    """vtm_satd_batch against the build of another rdcost.cu (with its
+    satd.cuh and common.cuh) in `other`, on phase 3's 13 timed tilings (8
+    bits, 1920x1080 samples each, satd_inputs), in turns."""
+    import numpy as np
+
+    from vtm_tpu_torch.ops import rdcost as RC
+
+    _, (fn,) = other_entries(KN, other, "rdcost.cu", ("vtm_satd_batch",))
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    sums = {}
+    for h, w, bd, d in satd_inputs(np.random.default_rng(11), dev):
+        if bd != 8:
+            continue
+        n = d.shape[0]
+        theirs = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        versus_row(torch, other, "vtm_satd_batch", f"{h}x{w}, {n} blocks",
+                   lambda: fn(d.data_ptr(), theirs.data_ptr(), n, h, w, stream),
+                   lambda: RC.satd_batch_cuda(d, h, w), theirs, d, sums,
+                   ops=d.numel() * satd_ops(RC, h, w))
+    versus_sums(sums, f"{len(SATD_SHAPES)} tilings")
+
+
+def sao_chain_inputs(torch, pic: dict, dev):
+    """The vtm_sao_apply calls of a captured picture's chain, as [(label,
+    plane, (type_map, ctu_map, offsets, valid))] for the planes with SAO;
+    all three planes after LMCS and both deblocking directions (the kernels
+    on CUDA tensors); and the bit depth."""
+    from vtm_tpu_torch.ops import deblock_kernel as DK
+    from vtm_tpu_torch.ops import filter_chain as FC
+
+    planes, lmcs_lut, dmaps, sao_maps, alf_tables, bd, sx, sy = (pic[k] for k in (
+        "planes", "lmcs_lut", "dmaps", "sao_maps", "alf_tables", "bd", "sx", "sy"))
+    fl = FC.chain_flags(len(planes), lmcs_lut, dmaps, sao_maps, alf_tables)
+    y, cb, cr = (FC.to_device(p, dev) for p in planes)
+    dbv, dbh, sao, _ = FC.maps_to_torch(dmaps, sao_maps, alf_tables, dev)
+    if fl[0]:
+        y = FC.to_device(lmcs_lut, dev)[y.long()]
+    for hor, maps, (hl, hcb, hcr) in ((False, dbv, fl[1:4]), (True, dbh, fl[4:7])):
+        y, cb, cr = DK.deblock_dir(y, cb, cr, *maps, bit_depth=bd, hor=hor, sx=sx, sy=sy,
+                                   has_l=hl, has_cb=hcb, has_cr=hcr)
+    return [(label, p, sao[c]) for c, (label, p) in enumerate((("Y", y), ("Cb", cb),
+                                                               ("Cr", cr)))
+            if sao[c] is not None], (y, cb, cr), bd
+
+
+def seeded_sao_maps(torch, plane, rng, ctu: int = 64):
+    """SAO maps for a plane whose picture has none: per ctu x ctu CTU a
+    type 0-4 and SAO on or off (half of them), offsets -7..7; numpy-seeded."""
+    import numpy as np
+
+    H, W = plane.shape
+    rows, cols = -(-H // ctu), -(-W // ctu)
+    grid = np.arange(rows * cols, dtype=np.int32).reshape(rows, cols)
+    ctu_map = np.repeat(np.repeat(grid, ctu, 0), ctu, 1)[:H, :W]
+    types = rng.integers(0, 5, rows * cols)
+    on = rng.random(rows * cols) < 0.5
+    offsets = rng.integers(-7, 8, (rows * cols, 32))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(plane.device) for a in (
+        types[ctu_map].astype(np.int32), ctu_map.astype(np.int32),
+        offsets.astype(np.int32), on[ctu_map]))
+
+
+def sao_ext_shards(torch, pic: dict, dev, lanes: int = 8, maps=None):
+    """The vtm_sao_apply_ext calls of the sharded luma chain over `lanes`
+    width shards of a captured picture, as [(label, (pad, type_map, ctu_map,
+    offsets, valid, bd))]: each shard extended by its neighbours' column
+    (edge copies at the picture border) and one edge row
+    (pic_shard.make_sharded_luma_filters), on the picture's luma as the
+    chain's input holds it, with its luma SAO maps or `maps` (type_map,
+    ctu_map, offsets, valid) in their place; also the unextended shards."""
+    from vtm_tpu_torch.ops import edge_pad
+    from vtm_tpu_torch.parallel import multichip as MCH
+    from vtm_tpu_torch.parallel import pic_shard as PS
+
+    x, _, _, sao, _, _ = MCH.luma_chain_args(pic)
+    sao = sao if maps is None else maps
+    bd = int(pic["bd"])
+    devs = [dev] * lanes
+    xs = PS._split_cols(PS._t(x), lanes, devs)
+    parts = [PS._split_cols(PS._t(m), lanes, devs) for m in (sao[0], sao[1], sao[3])]
+    offs = PS._t(sao[2]).to(dev)
+    return [(f"shard {i} of {lanes}",
+             (edge_pad(e, 1, 0), parts[0][i], parts[1][i], offs, parts[2][i], bd))
+            for i, e in enumerate(PS._halo_cols(xs, 1))], xs
+
+
+def versus_sao(torch, KN, other: str) -> None:
+    """vtm_sao_apply_ext and vtm_sao_apply against the build of another
+    sao.cu (with its common.cuh) in `other`, in turns: the first on the
+    eight 240-column VER shards (sao_ext_shards) of each picture of the
+    1080p stream with luma SAO, and of POC 0's luma with seeded maps (half
+    the CTUs on, seeded_sao_maps), a sum a set; the second on POC 0's Y, Cb
+    and Cr (sao_chain_inputs; a plane without SAO in that picture with
+    seeded maps)."""
+    import numpy as np
+
+    from vtm_tpu_torch.ops import sao_kernel as SK
+    from vtm_tpu_torch.parallel import multichip as MCH
+
+    _, (plane_fn, ext_fn) = other_entries(KN, other, "sao.cu",
+                                          ("vtm_sao_apply", "vtm_sao_apply_ext"))
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    pics = MCH.capture_decode(HD_STREAM, "cuda")["pics"]
+    pic = pics[0]
+
+    def other_call(fn, src, tmap, cmap, offs, valid, bd, out):
+        H, W = tmap.shape
+        return fn(src.data_ptr(), out.data_ptr(), tmap.data_ptr(), cmap.data_ptr(),
+                  offs.data_ptr(), valid.data_ptr(), H, W, offs.shape[0], bd, stream)
+
+    sets = [(f"POC {k}", sao_ext_shards(torch, p, dev)[0]) for k, p in enumerate(pics)
+            if MCH.luma_chain_args(p)[3] is not None]
+    luma = torch.from_numpy(MCH.luma_chain_args(pic)[0]).to(dev)
+    maps = seeded_sao_maps(torch, luma, np.random.default_rng(31))
+    sets.append(("POC 0 seeded maps", sao_ext_shards(torch, pic, dev, maps=maps)[0]))
+    for what, cases in sets:
+        sums = {}
+        for label, args in cases:
+            theirs = torch.full(args[1].shape, -1, dtype=torch.int32, device=dev)
+            versus_row(torch, other, "vtm_sao_apply_ext", f"1080p {what} VER {label}",
+                       lambda: other_call(ext_fn, *args, theirs),
+                       lambda: SK.sao_apply_ext_cuda(*args), theirs, args[:5], sums)
+        versus_sums(sums, f"8 VER shards, {what}")
+    sums = {}
+    planes, (_, cb, cr), bd = sao_chain_inputs(torch, pic, dev)
+    if len(planes) < 3:
+        # chroma without SAO in this picture: its planes with seeded maps
+        rng = np.random.default_rng(29)
+        planes += [(f"{label}, seeded maps", p, seeded_sao_maps(torch, p, rng))
+                   for label, p in (("Cb", cb), ("Cr", cr))
+                   if not any(q[0] == label for q in planes)]
+    for label, p, maps in planes:
+        theirs = torch.full_like(p, -1)
+        versus_row(torch, other, "vtm_sao_apply", f"1080p POC 0 {label}",
+                   lambda: other_call(plane_fn, p, *maps, bd, theirs),
+                   lambda: SK.sao_apply_cuda(p, *maps, bit_depth=bd), theirs, (p, maps),
+                   sums)
+    versus_sums(sums, "Y + Cb + Cr")
+
+
 def check_transforms(torch, chk: KernelCheck, dev, seed: int = 17):
     """Both inverse transform kernels against the plain version, and against
     each other, on numpy-seeded int16-range coefficients: for every block
@@ -1599,7 +1760,8 @@ def check_shard_entries(torch, chk: KernelCheck, pic: dict, dev, lanes: int = 8)
     the sharded chain pads it, the extended-plane SAO on the VER shards,
     each with its neighbours' real halo (edge copies at the picture
     border), and the recon/SSE epilogue on two 1080p planes of 32x32
-    blocks; timed, and the delta's and the classifier's launch floors."""
+    blocks; timed, and the delta's and the classifier's launch floors and
+    the device time of the torch calls that extend a shard for the SAO."""
     import numpy as np
 
     from vtm_tpu_torch.ops import alf_kernel as AK
@@ -1610,7 +1772,7 @@ def check_shard_entries(torch, chk: KernelCheck, pic: dict, dev, lanes: int = 8)
     from vtm_tpu_torch.parallel import multichip as MCH
     from vtm_tpu_torch.parallel import pic_shard as PS
 
-    x, _, _, sao, alf, _ = MCH.luma_chain_args(pic)
+    _, _, _, sao, alf, _ = MCH.luma_chain_args(pic)
     shards, ver_xs, bd = delta_shards(torch, pic, dev, lanes)
     for label, e, maps in shards:
         chk.compare("vtm_deblock_luma_ver_delta", f"1080p POC 0 {label}",
@@ -1662,16 +1824,21 @@ def check_shard_entries(torch, chk: KernelCheck, pic: dict, dev, lanes: int = 8)
                     timed=True, ins=(p4, coef, clip, o_rows, near),
                     ops=48 * (p4.shape[0] - 8) * (p4.shape[1] - 8), shape="shard")
     if sao is not None:
-        xs = PS._split_cols(PS._t(x), lanes, [dev] * lanes)
-        parts = [PS._split_cols(PS._t(m), lanes, [dev] * lanes) for m in (sao[0], sao[1], sao[3])]
-        offs = PS._t(sao[2]).to(dev)
-        for i, e in enumerate(PS._halo_cols(xs, 1)):
-            pad = edge_pad(e, 1, 0)
-            args = (pad, parts[0][i], parts[1][i], offs, parts[2][i], bd)
-            chk.compare("vtm_sao_apply_ext", f"1080p POC 0 shard {i} of {lanes}",
+        cases, xs = sao_ext_shards(torch, pic, dev, lanes)
+        for label, args in cases:
+            chk.compare("vtm_sao_apply_ext", f"1080p POC 0 {label}",
                         lambda: SK.sao_apply_ext_cuda(*args),
                         lambda: SK.sao_apply_ext_plain(*args), timed=True,
-                        ins=args[:5], ops=8 * parts[0][i].numel(), shape="shard")
+                        ins=args[:5], ops=8 * args[1].numel(), shape="shard")
+        # the two torch calls ahead of each shard's SAO on the sharded chain:
+        # the cat of its halo columns (PS._halo_cols) and its edge rows
+        halo = (xs[0][:, -1:], xs[1], xs[2][:, :1])
+        ext = torch.cat(halo, dim=1)
+        launch_floor(torch, chk, "halo cat", f"torch.cat of VER shard 1 and its halo "
+                     f"columns, {tuple(ext.shape)} int32", lambda: torch.cat(halo, dim=1))
+        launch_floor(torch, chk, "edge_pad", f"edge_pad(VER shard 1 with its halo "
+                     f"columns, 1, 0), its arange, clamp_ and gather launches",
+                     lambda: edge_pad(ext, 1, 0))
     rng = np.random.default_rng(23)
     shape = (2, 2040, 32, 32)
     resid, pred, orig = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (
@@ -2009,17 +2176,28 @@ def redesign_order(chk: KernelCheck, launches: dict) -> list:
 
 
 def sao_ext_reach(chk: KernelCheck) -> None:
-    """The extended-plane SAO's shard launches beside a copy of a VER
-    shard's plane timed in the same run: half of a launch's bound would
-    need a launch within twice that bound."""
+    """The extended-plane SAO's shard launches beside an empty kernel, a
+    copy of a VER shard's plane and the two torch calls that build each
+    shard's extended plane on the sharded chain (the halo columns' cat and
+    edge_pad), timed in the same run: half of a launch's bound would need a
+    launch within twice that bound, and an entry that read the shard and
+    its halo columns in place would save the two calls."""
     cases = chk.rows["vtm_sao_apply_ext"]["cases"]
     ms = [m for _, m, _ in cases]
     bound = max(b for _, _, b in cases)
-    copy = next(v for k, v in chk.floors.items() if k.startswith("torch copy_ of VER"))
+
+    def floor(prefix):
+        return next(v for k, v in chk.floors.items() if k.startswith(prefix))
+
+    cat, pad = floor("torch.cat of VER"), floor("edge_pad(VER")
     print(f"vtm_sao_apply_ext at shard shape: {min(ms):.6f}-{max(ms):.6f} ms a launch, "
           f"bound at most {bound:.6f} ms, so half of it needs at most {2 * bound:.6f} ms; "
-          f"a torch copy_ of a VER shard's plane (fewer bytes than a launch moves) takes "
-          f"{copy:.6f} ms", flush=True)
+          f"an empty kernel takes {floor('torch.cuda._sleep'):.6f} ms, a torch copy_ of a "
+          f"VER shard's plane (fewer bytes than a launch moves) "
+          f"{floor('torch copy_ of VER'):.6f} ms; ahead of each shard's launch the "
+          f"sharded chain spends {cat:.6f} ms (halo torch.cat) + {pad:.6f} ms (edge_pad) "
+          f"= {cat + pad:.6f} ms of device time that an entry reading the shard and its "
+          f"halo columns in place would save", flush=True)
 
 
 def decode_golden(torch, KN, Decoder) -> None:

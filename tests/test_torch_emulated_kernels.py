@@ -1,5 +1,5 @@
-"""The SATD, RMD, deblocking, MC, FIR, DMVR, BDOF, ALF and transform CUDA
-sources, built for the CPU by the test-support emulation of tests/_emu,
+"""The SATD, RMD, deblocking, SAO, MC, FIR, DMVR, BDOF, ALF and transform
+CUDA sources, built for the CPU by the test-support emulation of tests/_emu,
 against their plain torch versions.
 
 No card and no nvcc here, so the kernels themselves run on the chip only
@@ -7,7 +7,8 @@ No card and no nvcc here, so the kernels themselves run on the chip only
 This checks the same C++ — the per-class instantiations, the compact class
 table, the shared-memory layout, the warp SATD (its shuffles emulated), the
 native column order, the transposed hor group, MIP's upsampling, the
-reduction's first argmin — one std::thread per CUDA thread, on a few
+reduction's first argmin, the SATD's tile kinds in CTA steps and its
+block sums over several warps — one std::thread per CUDA thread, on a few
 positions of every class, and on strips of positions that fill one block
 and end part-way into the next; and the deblocking tiles (halos, decisions
 in shared memory, Cb and Cr in one launch) through the port's own wrappers
@@ -49,6 +50,7 @@ from vtm_tpu_torch.ops import deblock_kernel as DK
 from vtm_tpu_torch.ops import mc_kernel as MK
 from vtm_tpu_torch.ops import rdcost as RC
 from vtm_tpu_torch.ops import refine_kernel as RK
+from vtm_tpu_torch.ops import sao_kernel as SK
 from vtm_tpu_torch.ops import transform as TR
 from vtm_tpu_torch.parallel import mesh as MS
 
@@ -66,7 +68,7 @@ def lib(tmp_path_factory):
 
     return build.load(str(tmp_path_factory.mktemp("emu")),
                       ["rdcost.cu", "rmd.cu", "deblock.cu", "mc.cu", "alf.cu",
-                       "refine.cu", "transform.cu"])
+                       "refine.cu", "transform.cu", "sao.cu"])
 
 
 def test_satd_batch(lib):
@@ -87,6 +89,106 @@ def test_satd_batch(lib):
                                   None) == 0
         np.testing.assert_array_equal(out.numpy(),
                                       RC.satd_batch_plain(d, h, w).numpy())
+
+
+def _satd_blocks_per_cta(h: int, w: int) -> int:
+    """Blocks a 256-thread CTA of csrc/rdcost.cu takes a step, from the
+    kernel's own parameters (SatdLanes): R rows of a tile a lane (2 for
+    8x16, 4x8 and 2x2 tiles, 1 for SAD, else 4) and U = 16 / (R * TC)
+    blocks a lane (at least 1); a block's L = h * (w / TC) / R lane rows go
+    to P lanes, the least power of two >= L and at most 256, and a lane
+    takes U blocks a step where L <= P, else one."""
+    kind = RC.satd_kind(h, w)
+    tc = RC.KINDS[kind][1]
+    r = {0: 2, 2: 2, 6: 2, RC.SAD: 1}.get(kind, 4)
+    u = max(16 // (r * tc), 1)
+    lanes = h * (w // tc) // r
+    p = min(1 << (lanes - 1).bit_length(), 256)
+    return 256 // p * (u if lanes <= p else 1)
+
+
+# one shape per tile kind (8x16, 16x8, 4x8, 8x4, 8x8, 4x4, 2x2, SAD), then
+# blocks whose lanes P (see _satd_blocks_per_cta) span one warp or several:
+# 16x16 of 8x8 tiles (P = 8), 32x32 (P = 32), 64x64 (P = 128), 40x40
+# (L = 50 of P = 64), 24x8 of 8x4 tiles (L = 12 of P = 16, one warp), 48x12
+# of 8x4 tiles (L = 36 of P = 64), a SAD block of 49 samples (P = 64 lanes
+# of U = 16 blocks each, through shared memory) and one of 567 (L > 256:
+# three samples a lane, one block a step)
+SATD_GROUP_SHAPES = [(8, 16), (16, 8), (4, 8), (8, 4), (8, 8), (4, 4), (2, 2), (3, 5),
+                     (16, 16), (32, 32), (64, 64), (40, 40), (24, 8), (48, 12), (7, 7),
+                     (63, 9)]
+
+
+@pytest.mark.parametrize("h,w", SATD_GROUP_SHAPES)
+def test_satd_batch_groups(lib, h, w):
+    """Two CTA steps of blocks and one block more (a ragged last group; the
+    emulated grid is one CTA, so it walks all three steps), at 10 bits,
+    from `diff` 16-byte aligned and 1, 2 and 3 words off (the scalar
+    loads), into an output full of garbage: one launch writes every block's
+    sum and nothing past the last."""
+    rng = np.random.default_rng(h * 64 + w)
+    n = 2 * _satd_blocks_per_cta(h, w) + 1
+    for k in (0, 1 + (h + w) % 3):
+        d = _at_word(T.satd_diffs(rng, n, h, w, 10), k)
+        buf = _at_word(np.full(n + 1, -12345), 3 - k)
+        assert lib.vtm_satd_batch(d.data_ptr(), buf.data_ptr(), n, h, w, None) == 0
+        np.testing.assert_array_equal(buf[:n].numpy(), RC.satd_batch_plain(d, h, w).numpy())
+        assert buf[n] == -12345
+
+
+def _bytes_at(a: np.ndarray, k: int) -> torch.Tensor:
+    """bool `a` as a contiguous tensor k bytes past a 16-byte boundary."""
+    buf = torch.empty(a.size + 32, dtype=torch.bool)
+    off = -buf.data_ptr() % 16 + k
+    t = buf[off:off + a.size].view(a.shape)
+    t.copy_(torch.from_numpy(a))
+    assert t.data_ptr() % 16 == k
+    return t
+
+
+def _sao_case(rng, H: int, W: int, bd: int, n_ctu: int = 6):
+    """A pre-SAO plane extended by one sample (flat runs, so edge classes
+    tie, and samples outside [0, max] whose band is out of range), types
+    0-4 and outside them (-1, 5: band), CTU indices outside [0, n_ctu),
+    offsets, and a validity mask with rows and columns of invalid samples."""
+    maxv = (1 << bd) - 1
+    pad = rng.integers(0, maxv + 1, (H + 2, W + 2))
+    pad[rng.random(pad.shape) < 0.3] = maxv // 2
+    pad[rng.random(pad.shape) < 0.02] = -3
+    pad[rng.random(pad.shape) < 0.02] = maxv + 100
+    valid = rng.random((H, W)) < 0.8
+    valid[H // 3:H // 2] = False  # whole runs with no valid sample
+    valid[:, W // 2:W // 2 + 6] = False
+    return (pad, rng.integers(-1, 6, (H, W)), rng.integers(-2, n_ctu + 2, (H, W)),
+            rng.integers(-40, 41, (n_ctu, 32)), valid)
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("ext", [True, False])
+def test_sao_apply(lib, ext, bd):
+    """vtm_sao_apply_ext (plane extended by one sample) and vtm_sao_apply
+    (clamped reads) against their plain versions through the C entries:
+    planes of one and of several 32 x 16 CTAs, ragged at the right and the
+    bottom, odd widths, the plane and maps 16-byte aligned or 1-3 words off
+    and the mask 0-3 bytes off; into an output full of sentinels, whose
+    words around the plane stay untouched."""
+    rng = np.random.default_rng(50 + 2 * bd + ext)
+    for H, W, kw, kb in [(9, 36, 0, 0), (33, 64, 0, 0), (7, 29, 1, 1), (5, 13, 2, 3),
+                         (17, 33, 3, 2), (6, 20, 0, 1), (1, 1, 0, 0)]:
+        pad, tmap, cmap, offs, valid = _sao_case(rng, H, W, bd)
+        src = _at_word(pad if ext else pad[1:-1, 1:-1], kw)
+        maps = [_at_word(m, kw) for m in (tmap, cmap)]
+        offs, valid = torch.from_numpy(offs.astype(np.int32)), _bytes_at(valid, kb)
+        buf = _at_word(np.full(H * W + 2, -12345), (kw - 1) % 4)
+        out = buf[1:-1].view(H, W)  # kw words off, as the maps
+        entry = lib.vtm_sao_apply_ext if ext else lib.vtm_sao_apply
+        assert entry(src.data_ptr(), out.data_ptr(), *(m.data_ptr() for m in maps),
+                     offs.data_ptr(), valid.data_ptr(), H, W, offs.shape[0], bd,
+                     None) == 0
+        plain = SK.sao_apply_ext_plain if ext else SK.sao_apply_plain
+        np.testing.assert_array_equal(out.numpy(),
+                                      plain(src, *maps, offs, valid, bd).numpy())
+        assert buf[0] == buf[-1] == -12345
 
 
 @pytest.mark.parametrize("bd", [8, 10])

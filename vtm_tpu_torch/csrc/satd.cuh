@@ -11,13 +11,12 @@
 // __float2int_rz, and the library is built without --use_fast_math.  The
 // constants are the float32 values of jax's weak-typed Python floats.
 //
-// Two forms, exact in int32 for any difference a 10-bit picture gives:
-//   satd_tile       one thread takes a whole tile (butterflies on a register
-//                   array; rdcost.cu, any tile kind chosen at run time);
-//   warp_satd_tile  TR lanes of a warp take a TR x TC tile, one row each: the
-//                   row transform in registers, the column transform across
-//                   the lanes with __shfl_xor_sync (rmd.cu, tile shape fixed
-//                   at compile time).
+// One form, exact in int32 for any difference a 10-bit picture gives:
+// rows_satd_tile, in which G = TR / R lanes of a warp take a TR x TC tile,
+// R rows each: the row transform and the column transform's first log2 R
+// stages in registers, the rest across the lanes with __shfl_xor_sync (tile
+// shape fixed at compile time).  rdcost.cu calls it with R chosen per kind;
+// rmd.cu calls warp_satd_tile, its R = 1 case (one row a lane).
 
 #pragma once
 
@@ -76,25 +75,6 @@ __device__ __forceinline__ void fwht(int* v) {
   }
 }
 
-// sum |coeff| - dc + (dc >> 2) of the TH x TW tile diff(y, x).
-template <int TH, int TW, class F>
-__device__ __forceinline__ int had_tile(F diff) {
-  int d[TH * TW];
-#pragma unroll
-  for (int y = 0; y < TH; ++y)
-#pragma unroll
-    for (int x = 0; x < TW; ++x) d[y * TW + x] = diff(y, x);
-#pragma unroll
-  for (int y = 0; y < TH; ++y) fwht<TW, 1>(d + y * TW);
-#pragma unroll
-  for (int x = 0; x < TW; ++x) fwht<TH, TW>(d + x);
-  int s = 0;
-#pragma unroll
-  for (int i = 0; i < TH * TW; ++i) s += abs(d[i]);
-  const int dc = abs(d[0]);
-  return s - dc + (dc >> 2);
-}
-
 __device__ __forceinline__ int satd_norm_f32(int s, float norm) {
   return __float2int_rz(__fmul_rn(__int2float_rn(s), norm));
 }
@@ -112,45 +92,53 @@ __device__ __forceinline__ int satd_normalise(int s) {
 
 constexpr unsigned FULL_WARP = 0xffffffffu;
 
-// Normalised SATD of a TR x TC tile whose row i is d[] of lane i of an
-// aligned group of TR lanes (lane % TR is the row); every lane of the group
-// returns the tile's value.  All 32 lanes of the warp call it together, so
-// one call takes 32 / TR tiles.  Blocks are one-dimensional.
-template <int TR, int TC>
-__device__ __forceinline__ int warp_satd_tile(int (&d)[TC]) {
-  static_assert(TR >= 2 && TR <= 32 && 32 % TR == 0, "rows of a tile: 2..32 lanes");
-  const int row = threadIdx.x & (TR - 1);
-  fwht<TC, 1>(d);
+// Normalised SATD of a TR x TC tile held by an aligned group of G = TR / R
+// lanes, lane q (lane % G) holding rows q, q + G, ... of the tile in
+// d[0..R); every lane of the group returns the tile's value.  All 32 lanes
+// of the warp call it together, so one call takes 32 / G tiles.
+template <int TR, int TC, int R>
+__device__ __forceinline__ int rows_satd_tile(int (&d)[R][TC]) {
+  constexpr int G = TR / R;
+  static_assert(R >= 1 && TR % R == 0 && 32 % G == 0, "rows of a tile: R a lane");
 #pragma unroll
-  for (int s = 1; s < TR; s <<= 1) {
+  for (int j = 0; j < R; ++j) fwht<TC, 1>(d[j]);
 #pragma unroll
-    for (int i = 0; i < TC; ++i) {
-      const int o = __shfl_xor_sync(FULL_WARP, d[i], s);
-      d[i] = (row & s) ? o - d[i] : d[i] + o;
-    }
-  }
+  for (int s = 1; s < R; s <<= 1)
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      if ((j & s) == 0)
+#pragma unroll
+        for (int i = 0; i < TC; ++i) {
+          const int a = d[j][i], b = d[j + s][i];
+          d[j][i] = a + b;
+          d[j + s][i] = a - b;
+        }
+  const int q = threadIdx.x & (G - 1);
+#pragma unroll
+  for (int s = 1; s < G; s <<= 1)
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+#pragma unroll
+      for (int i = 0; i < TC; ++i) {
+        const int o = __shfl_xor_sync(FULL_WARP, d[j][i], s);
+        d[j][i] = (q & s) ? o - d[j][i] : d[j][i] + o;
+      }
   int sum = 0;
 #pragma unroll
-  for (int i = 0; i < TC; ++i) sum += abs(d[i]);
+  for (int j = 0; j < R; ++j)
 #pragma unroll
-  for (int s = 1; s < TR; s <<= 1) sum += __shfl_xor_sync(FULL_WARP, sum, s);
-  const int dc = abs(__shfl_sync(FULL_WARP, d[0], 0, TR));
+    for (int i = 0; i < TC; ++i) sum += abs(d[j][i]);
+#pragma unroll
+  for (int s = 1; s < G; s <<= 1) sum += __shfl_xor_sync(FULL_WARP, sum, s);
+  int dc = abs(d[0][0]);
+  if constexpr (G > 1) dc = abs(__shfl_sync(FULL_WARP, d[0][0], 0, G));
   return satd_normalise<TR * TC>(sum - dc + (dc >> 2));
 }
 
-// Normalised SATD of the tile of `kind` whose top-left sample is (y0, x0);
-// diff(y, x) gives the difference at block coordinates.
-template <class F>
-__device__ __forceinline__ int satd_tile(int kind, int y0, int x0, F diff) {
-  auto at = [&](int y, int x) { return diff(y0 + y, x0 + x); };
-  switch (kind) {
-    case SATD_8x16: return satd_normalise<128>(had_tile<8, 16>(at));
-    case SATD_16x8: return satd_normalise<128>(had_tile<16, 8>(at));
-    case SATD_4x8: return satd_normalise<32>(had_tile<4, 8>(at));
-    case SATD_8x4: return satd_normalise<32>(had_tile<8, 4>(at));
-    case SATD_8x8: return satd_normalise<64>(had_tile<8, 8>(at));
-    case SATD_4x4: return satd_normalise<16>(had_tile<4, 4>(at));
-    case SATD_2x2: return had_tile<2, 2>(at);
-    default: return abs(at(0, 0));
-  }
+// rows_satd_tile with one row a lane: row i of the tile is d[] of lane i of
+// an aligned group of TR lanes.
+template <int TR, int TC>
+__device__ __forceinline__ int warp_satd_tile(int (&d)[TC]) {
+  static_assert(TR >= 2, "rows of a tile: 2..32 lanes");
+  return rows_satd_tile<TR, TC, 1>(reinterpret_cast<int (&)[1][TC]>(d));
 }

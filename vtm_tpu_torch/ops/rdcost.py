@@ -35,8 +35,10 @@ reference does; the float64 `satd_batch` differs from it by one on some
 * CPU tensors: `satd_batch_plain`, exact-integer butterflies (never a
   float or integer matmul: on the card a float32 matmul may run as TF32,
   and CUDA torch has no integer matmul).
-* CUDA tensors: csrc/rdcost.cu, one thread per tile, on the device
-  function of csrc/satd.cuh that the RMD kernels (csrc/rmd.cu) share.
+* CUDA tensors: csrc/rdcost.cu, one launch a call: lanes take tile rows
+  (rows_satd_tile of csrc/satd.cuh, whose one-row-a-lane case the RMD
+  kernels of csrc/rmd.cu share) and each block's sum is stored once, so
+  `out` needs no zeroing.
 """
 
 from __future__ import annotations
