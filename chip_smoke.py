@@ -48,7 +48,8 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    - the two inverse transforms (int32 MACs; int8 tensor cores) on batches
      the size of a 1920x1080 plane, every block size and kind pair, 8- and
      10-bit, each against the plain version and the two against each
-     other; the luma deblocking delta on the eight 240-column VER shards
+     other (a line per square DCT2 size at 8 bits: both kernels' device
+     ms, the int8 one's bound, the faster); the luma deblocking delta on the eight 240-column VER shards
      (with real halos) of the 1080p picture and on its eight HOR shards
      (the VER result transposed, edge-padded), and beside them the device
      time of an empty kernel, of a copy of one VER and one HOR shard's
@@ -138,9 +139,12 @@ luma blocks and six-group dmvr_final_pack call, and the DMVR search and
 the BDOF blend on every call of the RA decode (recorded from this
 checkout's decode, a row a call) and on 8,100 seeded 16x16 sub-PUs and
 sub-blocks; transform.cu and
-common.cuh time the int32 inverse transform on the sharded
-reconstruction's 4,080- and 1,020-block lane slices of 32x32 DCT2 blocks
-and on 1080p-plane batches of the DCT2 sizes 8 to 64; rdcost.cu, satd.cuh
+common.cuh (with tc.cuh where the commit has one) time the int32 inverse
+transform on the sharded reconstruction's 4,080- and 1,020-block lane
+slices of 32x32 DCT2 blocks and on 1080p-plane batches of the DCT2 sizes
+8 to 64, and the int8 one on 1080p-plane batches of the DCT2 sizes 2 to 64
+(each size also against this checkout's int32 kernel) and of 4x16 DST7 /
+DCT8 and 64x2 DCT2 blocks; rdcost.cu, satd.cuh
 and common.cuh time the SATD on phase 3's 13 tilings at 8 bits (1920x1080
 samples each); sao.cu and common.cuh time the extended-plane SAO on the
 eight VER shards of each picture of the 1080p stream with luma SAO and of
@@ -231,7 +235,8 @@ NO_LOCAL_MEMORY = {
     **dict.fromkeys(("mc_tiles_kernel", "alf_filter_kernel", "fir_blocks_kernel",
                      "rmd_reduce_kernel", "alf_classify_kernel", "luma_tile_kernel",
                      "inv_transform_tile_kernel", "dmvr_search_kernel",
-                     "bdof_blend_kernel", "satd_batch_kernel", "sao_kernel"),
+                     "bdof_blend_kernel", "satd_batch_kernel", "sao_kernel",
+                     "inv_transform_s8_kernel"),
                     ("spill_stores", "spill_loads", "stack_frame"))}
 # runs of each sharded stage whose host seconds are compared (median)
 REPEATS = 7
@@ -1083,13 +1088,13 @@ def other_entries(KN, other: str, source: str, names):
 
 
 def versus_row(torch, other: str, name: str, label: str, other_fn, this_fn, theirs,
-               ins, sums: dict, ops: float = 0):
+               ins, sums: dict, ops: float = 0, peak: float = INT32_OPS_PER_S):
     """One row of --versus: the other build's call (it must launch), this
     build's output held equal to its `theirs`, both timed in turns; prints
     the row with each build's share of the bound (the bytes of `ins` and
-    the output, or `ops` int32 operations, whichever takes longer), adds
-    (other ms, this ms, bytes, ops) to sums[name], and returns this build's
-    output."""
+    the output, or `ops` operations at `peak` a second (int32 lanes unless
+    given), whichever takes longer), adds (other ms, this ms, bytes, ops,
+    ops ms) to sums[name], and returns this build's output."""
     if other_fn() != 0:
         raise RuntimeError(f"{other}: {name} refused")
     mine = this_fn()
@@ -1099,9 +1104,9 @@ def versus_row(torch, other: str, name: str, label: str, other_fn, this_fn, thei
         raise AssertionError(f"{name} {label}: this build and {other} differ by {err}")
     o_ms, t_ms, t = turns(torch, other_fn, this_fn)
     nb = nbytes(ins, mine)
-    bound = max(nb / BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
-    acc = sums.setdefault(name, [0.0, 0.0, 0, 0])
-    for k, v in enumerate((o_ms, t_ms, nb, ops)):
+    bound = max(nb / BYTES_PER_S, ops / peak) * 1e3
+    acc = sums.setdefault(name, [0.0, 0.0, 0, 0, 0.0])
+    for k, v in enumerate((o_ms, t_ms, nb, ops, ops / peak * 1e3)):
         acc[k] += v
     print(f"versus {name} {label}: other {o_ms:.6f} ms, this {t_ms:.6f} ms "
           f"({o_ms / t_ms:.2f}x; turns {', '.join(f'{x:.6f}' for x in t)}), {nb} bytes, "
@@ -1111,8 +1116,8 @@ def versus_row(torch, other: str, name: str, label: str, other_fn, this_fn, thei
 
 
 def versus_sums(sums: dict, what: str) -> None:
-    for name, (o_ms, t_ms, nb, ops) in sums.items():
-        bound = max(nb / BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
+    for name, (o_ms, t_ms, nb, ops, ops_ms) in sums.items():
+        bound = max(nb / BYTES_PER_S * 1e3, ops_ms)
         print(f"versus sum {name} ({what}): other {o_ms:.6f} ms, this {t_ms:.6f} ms "
               f"({o_ms / t_ms:.2f}x), {nb} bytes, {ops:.6g} ops, bound {bound:.6f} ms "
               f"({100 * bound / t_ms:.2f} % this, {100 * bound / o_ms:.2f} % other)",
@@ -1413,29 +1418,38 @@ def versus_search_blend(torch, KN, other: str, lib, got: dict, rng) -> None:
 
 
 def versus_transform(torch, KN, other: str) -> None:
-    """vtm_inv_transform against the build of another transform.cu in
-    `other` (with its common.cuh), in turns, on 8-bit DCT2 blocks of
-    numpy-seeded int16-range coefficients: the sharded reconstruction's
-    lane slices of 32x32 blocks (4,080 on 1 x 1 lanes, 1,020 on 2 x 2),
-    then the square sizes 8 to 64, each a batch the size of a 1920x1080
-    plane."""
+    """vtm_inv_transform and vtm_inv_transform_s8 against the build of
+    another transform.cu in `other` (with its common.cuh, and its tc.cuh
+    where it has one), in turns, on numpy-seeded int16-range coefficients
+    at 8 bits: vtm_inv_transform on DCT2 blocks, the sharded
+    reconstruction's lane slices of 32x32 blocks (4,080 on 1 x 1 lanes,
+    1,020 on 2 x 2), then the square sizes 8 to 64, each a batch the size of
+    a 1920x1080 plane; vtm_inv_transform_s8 on 1080p-plane batches of the
+    square DCT2 sizes 2 to 64 (a sum; tensor-core operations bound, below
+    the bytes), each also timed in turns with this build's
+    vtm_inv_transform on the same blocks, and of 4x16 DST7 / DCT8 and 64x2
+    DCT2 blocks (small blocks packed into tiles, a ragged last group)."""
     import numpy as np
 
     from vtm_tpu_torch.ops import transform as TR
 
-    _, (fn, _, _) = other_entries(KN, other, "transform.cu",
-                                  ("vtm_inv_transform", "vtm_inv_transform_s8",
-                                   "vtm_recon_sse"))
+    _, (fn, fn_s8, _) = other_entries(KN, other, "transform.cu",
+                                      ("vtm_inv_transform", "vtm_inv_transform_s8",
+                                       "vtm_recon_sse"))
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
     rng = np.random.default_rng(17)
+
+    def coeffs(nb, h, w):
+        return torch.from_numpy(rng.integers(-32768, 32768, size=(nb, h, w))
+                                .astype(np.int32)).to(dev)
+
     cases = [(f"lane 0 of sharded_recon_step on {lanes} lanes", nb, 32)
              for lanes, nb in (("1 x 1", 4080), ("2 x 2", 1020))]
     cases += [("1080p plane", 1920 * 1080 // (n * n), n) for n in (8, 16, 32, 64)]
     sums = {}
     for label, nb, n in cases:
-        c = torch.from_numpy(rng.integers(-32768, 32768, size=(nb, n, n))
-                             .astype(np.int32)).to(dev)
+        c = coeffs(nb, n, n)
         tv = TR._tmat(TR.DCT2, n, dev)
         theirs = torch.full_like(c, -1)
         versus_row(torch, other, "vtm_inv_transform", f"{label}, {nb} {n}x{n} DCT2 blocks",
@@ -1444,6 +1458,32 @@ def versus_transform(torch, KN, other: str) -> None:
                    lambda: TR.inv_transform_batch_cuda(c, 8), theirs, c,
                    sums if label == "1080p plane" else {}, ops=nb * n * n * 2 * n)
     versus_sums(sums, "DCT2 8-64 on 1080p planes")
+    sums = {}
+    for h, w, tr_hor, tr_ver in [(n, n, TR.DCT2, TR.DCT2) for n in (2, 4, 8, 16, 32, 64)] + [
+            (4, 16, TR.DST7, TR.DCT8), (64, 2, TR.DCT2, TR.DCT2)]:
+        nb = 1920 * 1080 // (h * w)
+        c = coeffs(nb, h, w)
+        tv, th = TR._tmat(tr_ver, h, dev), TR._tmat(tr_hor, w, dev)
+        theirs = torch.full_like(c, -1)
+        square = h == w
+        label = f"1080p plane, {nb} {h}x{w} kinds {(tr_hor, tr_ver)} blocks"
+        mine = versus_row(
+            torch, other, "vtm_inv_transform_s8", label,
+            lambda: fn_s8(c.data_ptr(), theirs.data_ptr(), tv.data_ptr(), th.data_ptr(),
+                          nb, h, w, 8, stream),
+            lambda: TR.inv_transform_batch_s8_cuda(c, 8, tr_hor, tr_ver), theirs, c,
+            sums if square else {}, ops=4 * nb * h * w * (h + w), peak=INT8_TC_OPS_PER_S)
+        if square:
+            if not torch.equal(mine, TR.inv_transform_batch_cuda(c, 8)):
+                raise AssertionError(f"vtm_inv_transform != vtm_inv_transform_s8 [{label}]")
+            s8_ms, i32_ms, t = turns(torch, lambda: TR.inv_transform_batch_s8_cuda(c, 8),
+                                     lambda: TR.inv_transform_batch_cuda(c, 8))
+            print(f"versus this s8 / int32 {h}x{w}: vtm_inv_transform_s8 {s8_ms:.6f} ms, "
+                  f"vtm_inv_transform {i32_ms:.6f} ms (turns "
+                  f"{', '.join(f'{x:.6f}' for x in t)}), faster: "
+                  f"{'vtm_inv_transform_s8' if s8_ms < i32_ms else 'vtm_inv_transform'}",
+                  flush=True)
+    versus_sums(sums, "DCT2 2-64 on 1080p planes")
 
 
 def versus_deblock(torch, KN, other: str) -> None:
@@ -1702,6 +1742,7 @@ def check_transforms(torch, chk: KernelCheck, dev, seed: int = 17):
                                     lambda: TR.inv_transform_batch_cuda(*args),
                                     lambda: TR.inv_transform_batch_plain(*args),
                                     timed, ins=c, ops=macs, quiet=not timed)
+                    i32 = chk.last
                     s = chk.compare("vtm_inv_transform_s8", tag,
                                     lambda: TR.inv_transform_batch_s8_cuda(*args),
                                     lambda: TR.inv_transform_batch_s8_plain(*args),
@@ -1709,6 +1750,16 @@ def check_transforms(torch, chk: KernelCheck, dev, seed: int = 17):
                                     peak=INT8_TC_OPS_PER_S, quiet=not timed)
                     if not (torch.equal(a, s) and torch.equal(a, plain)):
                         raise AssertionError(f"vtm_inv_transform != vtm_inv_transform_s8 [{tag}]")
+                    if timed:
+                        s8 = chk.last
+                        t_b, t_o = s8["bytes"] / BYTES_PER_S, s8["ops"] / INT8_TC_OPS_PER_S
+                        print(f"transform {tag}: vtm_inv_transform_s8 {s8['ms']:.6f} ms, "
+                              f"vtm_inv_transform {i32['ms']:.6f} ms (device), s8 bound "
+                              f"{max(t_b, t_o) * 1e3:.6f} ms "
+                              f"({'bytes' if t_b >= t_o else 'operations'}; "
+                              f"{100 * max(t_b, t_o) * 1e3 / s8['ms']:.2f} %), faster: "
+                              f"{'vtm_inv_transform_s8' if s8['ms'] < i32['ms'] else 'vtm_inv_transform'}",
+                              flush=True)
                     cases += 1
     print(f"inverse transforms: {cases} cases, vtm_inv_transform == "
           "vtm_inv_transform_s8 == plain on every one", flush=True)

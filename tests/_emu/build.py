@@ -10,7 +10,11 @@ which runs every block in turn with one std::thread per CUDA thread and a
 std::barrier for __syncthreads(); `extern __shared__ T name[];` becomes a
 pointer of that type to one global buffer; inline PTX (`asm volatile`) is
 dropped, so a kernel that uses it gives wrong results here and is not
-tested so.  g++ (C++20, no FP contraction) links
+tested so.  The int8 tensor-core products and asynchronous copies of
+csrc/tc.cuh are inline PTX: its twin here (tc.cuh: a warp-collective
+mma_k32 through the stub's exchange slots, cp_async as a copy) takes its
+place in the build, and mma_probe.cu, also here, exposes one product to
+the tests (`emu_mma_k32`).  g++ (C++20, no FP contraction) links
 the result into OUT_DIR/libvtm_emu.so with the same C entry points as the
 real library; `load` returns it with their ctypes argument types, to call
 on CPU tensors' data_ptr()s and hold against the plain torch versions.
@@ -62,8 +66,13 @@ def build(out_dir: str, names=None) -> str:
     names = names or sorted(f for f in os.listdir(CSRC) if f.endswith(".cu"))
     gen = os.path.join(out_dir, "src")
     os.makedirs(gen, exist_ok=True)
-    for f in os.listdir(CSRC):
-        with open(os.path.join(CSRC, f)) as fh:
+    # the csrc sources, a header with a twin here (tc.cuh) replaced by it,
+    # and this directory's own test-support sources (mma_probe.cu)
+    files = {f: os.path.join(CSRC, f) for f in os.listdir(CSRC)}
+    files.update({f: os.path.join(HERE, f) for f in os.listdir(HERE)
+                  if f.endswith(".cu") or (f.endswith(".cuh") and f in files)})
+    for f, path in files.items():
+        with open(path) as fh:
             text = translate(fh.read())
         with open(os.path.join(gen, f), "w") as fh:
             fh.write(text)

@@ -13,6 +13,8 @@
 // lane's slot and waits again, so every lane of the warp must take part, as
 // the kernels' full-mask shuffles require; __reduce_min_sync likewise
 // reads every lane's slot between two waits.
+// A lane's words of a call that exchanges more than one (tc.cuh's twin)
+// go through emu_frag_slot the same way.
 // Stream and memory calls act at once on host memory.  Device intrinsics map
 // to their host meanings: __fmul_rn to one float product (volatile, built
 // with -ffp-contract=off), __float2int_rz to C truncation.
@@ -41,6 +43,7 @@ struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c 
 struct alignas(16) int4 { int x, y, z, w; };
 inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 struct alignas(8) int2 { int x, y; };
+inline int2 make_int2(int x, int y) { return {x, y}; }
 struct uint3 { unsigned x, y, z; };
 inline thread_local uint3 threadIdx;
 inline thread_local uint3 blockIdx;
@@ -64,6 +67,9 @@ inline int __shfl_xor_sync(unsigned, int v, int mask, int = 32) {
 inline int __shfl_sync(unsigned, int v, int src, int width = 32) {
   return emu_shfl(v, (threadIdx.x & 31 & ~(width - 1)) + src % width);
 }
+// a lane's words for warp-collective calls of more than one value (the
+// tensor-core products of tc.cuh's twin)
+inline uint32_t emu_frag_slot[1024][6];
 inline long long emu_lane_slot64[1024];
 inline long long __shfl_down_sync(unsigned, long long v, int delta) {
   const unsigned lane = threadIdx.x & 31;
@@ -102,6 +108,14 @@ int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) { *n =
 using std::max; using std::min; using std::abs;
 inline int __clz(int v) { return v == 0 ? 32 : __builtin_clz((unsigned)v); }
 inline int __float2int_rz(float f) { return (int)f; }
+// byte n of the result is byte (s >> 4n) & 7 of y:x (selector nibbles below 8)
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = (uint64_t)y << 32 | x;
+  unsigned r = 0;
+  for (int n = 0; n < 4; ++n) r |= (unsigned)(v >> 8 * ((s >> 4 * n) & 7) & 0xFF) << 8 * n;
+  return r;
+}
+template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __int2float_rn(int i) { return (float)i; }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_RELAXED); }

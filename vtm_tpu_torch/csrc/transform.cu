@@ -29,15 +29,36 @@
 // stage-1 result too, and every thread forming whole output samples.
 //
 // `vtm_inv_transform_s8`: the same function on the int8 tensor cores, as the
-// reference ran it on the TPU's matrix unit.  An int16 operand x splits into
-// hi = (x - (x & 255)) >> 8 and lo - 128 = (x & 255) - 128, both int8; a
-// stage is two int8 x int8 -> int32 products, hi * 256 + lo, plus the
-// correction 128 * sum_k t[k].  Each product is tiled into
-// mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 tiles (A 16x32 row-major,
-// B 32x8 stored n-major so each thread's four k-consecutive bytes are one
-// 32-bit word), operands zero-padded in shared memory to the tile sizes:
-//   stage 1: D[y, g*W + x] = sum_k Tv[k, y] * c[g][k, x]  (A = Tv^T, B = c)
-//   stage 2: D[g*H + y, x] = sum_k tmp[g][y, k] * Th[k, x] (A = tmp, B = Th)
+// reference ran it on the TPU's matrix unit.  An int16-range operand x is
+// hi * 256 + lo, lo = x & 255 its low byte (unsigned) and hi its second byte
+// (signed: x >> 8 wrapped to int8, as the reference's cast).  A stage is a
+// hi and a lo product on mma.sync m16n8k32 (csrc/tc.cuh): s8 x s8 for hi,
+// s8 x u8 (stage 1) or u8 x s8 (stage 2) for lo, summed as hi * 256 + lo,
+// so no correction term:
+//   stage 1: D1[m][n] = sum_K A1[m][K] B1[K][n], A1 = Tv^T, B1 = coefficients
+//   stage 2: D2[m][n] = sum_k A2[m][k] B2[k][n], A2 = D1 shifted and clipped,
+//            B2 = Th.
+// Small blocks share tiles with no padding: rows m = (b, y) stack r = 16 / H
+// blocks (H <= 16: A1 block-diagonal, K = (b, k) 16 deep, the upper 16 of
+// the 32 zero), columns n = (b', x) put s = 32 / W blocks side by side (W <=
+// 32: B2 block-diagonal).  A job is the KR x NC coefficients one B1 covers
+// (KR = 16, 32 or 64 rows by NC = 32 or 64 columns, an instantiation each:
+// six); a warp's task is 16 rows of a job.  A persistent CTA of 4 warps walks
+// groups of 4,096 coefficients, each copied by 16-byte cp.async (8 or 4
+// bytes for 2-wide blocks or lesser alignment) into one of two stage buffers
+// while the other is computed: each job a row-major KR x NC matrix whose
+// 16-byte chunks are XORed by 2 * ((K >> 2) & 3) within their 128-byte line.
+// Nothing is reset: a block past the batch's end is computed from stale
+// words and not stored.  Each warp holds A1's and B2's fragments in
+// registers for all its tasks.  Lane (g, t) = (lane >> 2, lane & 3) builds
+// B1's words from rows 4t..4t+3 of column g (one 32-bit load each, the swizzle
+// putting the warp's 32 on distinct banks; bytes gathered with prmt).  Its
+// stage-1 accumulators hold D1[g, g + 8][2t, 2t + 1] of each 8-column
+// n-tile, so stage 2 takes k in that order: logical 4t + e of a 32-column
+// chunk is column 8 (e >> 1) + 2t + (e & 1) (16 more for logical 16-31),
+// B2's rows permuted to match.  Stage 1 is shifted, clipped and split in
+// registers and fed to stage 2 with no trip through shared memory; lanes
+// store two adjacent outputs, 8 bytes, guarded past the last block.
 //
 // `vtm_recon_sse` is the per-lane epilogue of the sharded reconstruction
 // step (vtm_tpu/parallel/mesh.py:sharded_recon_step, L78-84): recon =
@@ -46,11 +67,18 @@
 //
 // Bound on the H100 at 1080p sizes: the int32 kernel does H + W multiply-adds
 // per sample, so at 32 and 64 points it is bound by integer throughput, at 4
-// points by memory (8 bytes a sample); the int8 products are far below the
-// tensor cores' rate, so the s8 kernel is bound by memory and by the padding
-// of small blocks to whole tiles.
+// points by memory (8 bytes a sample).  The s8 kernel's tensor-core work, 4
+// (H + W) operations a sample, is far below its 8 bytes a sample (a 1080p
+// plane at 64 points: 0.54 us against 4.95 us at the H100 SXM's published
+// 1,979 T int8 operations and 3.35 TB/s, 700 W), so memory bounds every
+// size.  At 1080p a launch is about one group a CTA: a load wave, one
+// group's products, the stores.  At 64 points each of the four warps reads
+// the whole 64 x 64 block for its 16 rows, and blocks 64 wide run at most
+// two CTAs an SM, so each CTA's second group loads under its first group's
+// products.
 
 #include "common.cuh"
+#include "tc.cuh"
 
 constexpr int kThreads = 256;
 constexpr int kS8Threads = 128;
@@ -231,188 +259,249 @@ static int launch_tiles(const int* coeff, int* out, const int* tv, const int* th
 
 // ---- int8 tensor-core form ------------------------------------------------
 
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4],
-                                       const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+constexpr int kS8GroupWords = 4096;  // coefficients a CTA stages a step (16 KB)
 
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The int8 halves of an int16-range value; hi wraps as a cast to int8 does.
-__device__ __forceinline__ void split_s8(int v, int8_t& hi, int8_t& lo) {
-  const int l = v & 0xFF;
-  hi = (int8_t)((v - l) >> 8);
-  lo = (int8_t)(l - 128);
-}
-
-// One 16x8 output tile of D = A1 B + A2 B (two products sharing B, or two
-// sharing A): A is [Mp x Kp] row-major (lda bytes per row), Bt is [Np x Kp]
-// (B stored n-major, ldb bytes per row).  Returns the two int32 accumulators
-// of this thread's four tile elements.
-struct TilePair {
-  int d1[4], d2[4];
+// A job is KR x NC coefficients that one stage-1 operand covers: KR = 16
+// rows (b, k) of r = 16 / H blocks stacked (H <= 16), or the H = 32 or 64
+// rows k of one block row; NC = 32 columns (b', x) of s = 32 / W blocks side
+// by side (W <= 32), or the 64 columns of W = 64.  A task, one warp's work,
+// is 16 output rows of a job: KR / 16 tasks a job, 256 / NC a group.
+template <int KR, int NC>
+struct S8Shape {
+  static constexpr int kNT = NC / 8;              // n-tiles of a task
+  static constexpr int kKC1 = KR == 64 ? 2 : 1;   // stage-1 k chunks of 32
+  static constexpr int kKC2 = NC / 32;            // stage-2 k chunks of 32
+  static constexpr int kRegs1 = KR == 16 ? 1 : 2; // stage-1 B words a chunk
+  static constexpr int kMT = KR / 16;             // tasks a job
+  static constexpr int kTasksPerWarp = 256 / NC / (kS8Threads / 32);
 };
 
-__device__ __forceinline__ TilePair mma_tile(const int8_t* A1, const int8_t* A2,
-                                             int lda, const int8_t* B1,
-                                             const int8_t* B2, int ldb, int m0,
-                                             int n0, int Kp) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  TilePair r = {{0, 0, 0, 0}, {0, 0, 0, 0}};
-  for (int k0 = 0; k0 < Kp; k0 += 32) {
-    const int ka = k0 + t * 4;
-    uint32_t a1[4], a2[4], b1[2], b2[2];
-    a1[0] = ld32(A1 + (m0 + g) * lda + ka);
-    a1[1] = ld32(A1 + (m0 + g + 8) * lda + ka);
-    a1[2] = ld32(A1 + (m0 + g) * lda + ka + 16);
-    a1[3] = ld32(A1 + (m0 + g + 8) * lda + ka + 16);
-    a2[0] = ld32(A2 + (m0 + g) * lda + ka);
-    a2[1] = ld32(A2 + (m0 + g + 8) * lda + ka);
-    a2[2] = ld32(A2 + (m0 + g) * lda + ka + 16);
-    a2[3] = ld32(A2 + (m0 + g + 8) * lda + ka + 16);
-    b1[0] = ld32(B1 + (n0 + g) * ldb + ka);
-    b1[1] = ld32(B1 + (n0 + g) * ldb + ka + 16);
-    b2[0] = ld32(B2 + (n0 + g) * ldb + ka);
-    b2[1] = ld32(B2 + (n0 + g) * ldb + ka + 16);
-    mma_s8(r.d1, a1, b1);
-    mma_s8(r.d2, a2, b2);
-  }
-  return r;
+// Word of logical job element (K, n) in a stage: rows of NC words, each
+// 16-byte chunk XORed by 2 * ((K >> 2) & 3) within its 128-byte line, so the
+// eight chunks of rows K, K + 4, K + 8, K + 12 that a fragment load touches
+// fall on eight distinct bank groups.
+template <int NC>
+__device__ __forceinline__ int stage_word(int K, int n) {
+  return K * NC + ((((n >> 2) ^ ((K >> 1) & 6))) << 2) + (n & 3);
 }
 
-__host__ __device__ __forceinline__ int round_up(int v, int m) {
-  return (v + m - 1) / m * m;
+// Words [w0, w0 + words) of the coefficients into `stage`, UNIT words (a
+// 4 * UNIT-byte cp.async) at a time, each to its job element.
+template <int KR, int NC, int UNIT>
+__device__ __forceinline__ void stage_group(int* stage, const int* __restrict__ coeff,
+                                            long long w0, int words, int lh, int lw,
+                                            int ls, int lrs) {
+  for (int o = threadIdx.x * UNIT; o < words; o += kS8Threads * UNIT) {
+    const int blk = o >> (lh + lw);
+    const int bj = blk & ((1 << lrs) - 1);
+    const int K = ((bj >> ls) << lh) + ((o >> lw) & ((1 << lh) - 1));
+    const int n = ((bj & ((1 << ls) - 1)) << lw) + (o & ((1 << lw) - 1));
+    cp_async<4 * UNIT>(stage + (blk >> lrs) * (KR * NC) + stage_word<NC>(K, n),
+                       coeff + w0 + o);
+  }
 }
 
-struct S8Layout {
-  int G, Mp1, Kp1, Np1, Mp2, Kp2, Np2;
-  int off_a1, off_b1h, off_b1l, off_a2h, off_a2l, off_b2, off_tmp, off_c1,
-      off_c2, bytes;
-};
-
-__host__ __device__ inline S8Layout s8_layout(int H, int W, int G) {
-  S8Layout L;
-  L.G = G;
-  L.Mp1 = round_up(H, 16);
-  L.Kp1 = round_up(H, 32);
-  L.Np1 = round_up(G * W, 8);
-  L.Mp2 = round_up(G * H, 16);
-  L.Kp2 = round_up(W, 32);
-  L.Np2 = round_up(W, 8);
-  int o = 0;
-  L.off_a1 = o;  o += L.Mp1 * L.Kp1;
-  L.off_b1h = o; o += L.Np1 * L.Kp1;
-  L.off_b1l = o; o += L.Np1 * L.Kp1;
-  L.off_a2h = o; o += L.Mp2 * L.Kp2;
-  L.off_a2l = o; o += L.Mp2 * L.Kp2;
-  L.off_b2 = o;  o += L.Np2 * L.Kp2;
-  o = round_up(o, 16);
-  L.off_tmp = o; o += G * H * W * 4;
-  L.off_c1 = o;  o += H * 4;
-  L.off_c2 = o;  o += W * 4;
-  L.bytes = o;
-  return L;
+// Four int16-range values -> the word of their low bytes (u8) and of their
+// second bytes (s8: the int8 wrap of x >> 8); x = hi * 256 + lo.
+__device__ __forceinline__ void split4(int v0, int v1, int v2, int v3, uint32_t& hi,
+                                       uint32_t& lo) {
+  const uint32_t p01 = __byte_perm(v0, v1, 0x5140), p23 = __byte_perm(v2, v3, 0x5140);
+  lo = __byte_perm(p01, p23, 0x5410);
+  hi = __byte_perm(p01, p23, 0x7632);
 }
 
-__global__ void inv_transform_s8_kernel(const int* __restrict__ coeff,
-                                        int* __restrict__ out,
-                                        const int* __restrict__ tv,
-                                        const int* __restrict__ th, long long B,
-                                        int H, int W, int G, int shift2) {
-  extern __shared__ __align__(16) int8_t sm[];
-  const S8Layout L = s8_layout(H, W, G);
-  int8_t* A1 = sm + L.off_a1;    // Tv^T   [Mp1 x Kp1]
-  int8_t* B1h = sm + L.off_b1h;  // hi(c)  [Np1 x Kp1], n = g*W + x, k = row
-  int8_t* B1l = sm + L.off_b1l;  // lo(c) - 128
-  int8_t* A2h = sm + L.off_a2h;  // hi(tmp) [Mp2 x Kp2], m = g*H + y, k = col
-  int8_t* A2l = sm + L.off_a2l;
-  int8_t* B2 = sm + L.off_b2;    // Th^T    [Np2 x Kp2]: B2[x][k] = th[k][x]
-  int* tmp = reinterpret_cast<int*>(sm + L.off_tmp);  // G x H x W
-  int* corr1 = reinterpret_cast<int*>(sm + L.off_c1);  // 128 * sum_k tv[k][y]
-  int* corr2 = reinterpret_cast<int*>(sm + L.off_c2);  // 128 * sum_k th[k][x]
-  const long long blk0 = (long long)blockIdx.x * G;
-  const int n = (int)min((long long)G, B - blk0);
-  const int hw = H * W;
-  const int tid = threadIdx.x, nth = blockDim.x;
-
-  for (int i = tid; i < L.off_tmp; i += nth) sm[i] = 0;
-  __syncthreads();
-  for (int i = tid; i < H * H; i += nth) {
-    const int k = i / H, y = i % H;
-    A1[y * L.Kp1 + k] = (int8_t)tv[i];
-  }
-  for (int i = tid; i < W * W; i += nth) {
-    const int k = i / W, x = i % W;
-    B2[x * L.Kp2 + k] = (int8_t)th[i];
-  }
-  for (int y = tid; y < H; y += nth) {
-    int s = 0;
-    for (int k = 0; k < H; ++k) s += tv[k * H + y];
-    corr1[y] = 128 * s;
-  }
-  for (int x = tid; x < W; x += nth) {
-    int s = 0;
-    for (int k = 0; k < W; ++k) s += th[k * W + x];
-    corr2[x] = 128 * s;
-  }
-  const int* src = coeff + blk0 * hw;
-  for (int i = tid; i < n * hw; i += nth) {
-    const int g = i / hw, k = (i - g * hw) / W, x = i % W;
-    int8_t hi, lo;
-    split_s8(src[i], hi, lo);
-    B1h[(g * W + x) * L.Kp1 + k] = hi;
-    B1l[(g * W + x) * L.Kp1 + k] = lo;
-  }
-  __syncthreads();
-
-  const int warp = tid >> 5, nwarp = nth >> 5;
-  const int lane = tid & 31, gq = lane >> 2, tq = lane & 3;
-  // stage 1: both products share A = Tv^T
-  const int tiles1 = (L.Mp1 / 16) * (L.Np1 / 8);
-  for (int tile = warp; tile < tiles1; tile += nwarp) {
-    const int m0 = (tile / (L.Np1 / 8)) * 16, n0 = (tile % (L.Np1 / 8)) * 8;
-    const TilePair r = mma_tile(A1, A1, L.Kp1, B1h, B1l, L.Kp1, m0, n0, L.Kp1);
+// The low bytes of m[idx[e]] (0 where !ok[e]) as one fragment word.
+__device__ __forceinline__ uint32_t pack_bytes(const int* __restrict__ m, const int (&idx)[4],
+                                               const bool (&ok)[4]) {
+  int v[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int y = m0 + gq + (e >> 1) * 8, col = n0 + tq * 2 + (e & 1);
-      if (y < H && col < n * W) {
-        const int g = col / W, x = col % W;
-        const int acc = r.d1[e] * 256 + r.d2[e] + corr1[y];
-        tmp[g * hw + y * W + x] = clip16((acc + 64) >> 7);
+  for (int e = 0; e < 4; ++e) v[e] = ok[e] ? __ldg(m + idx[e]) : 0;
+  return __byte_perm(__byte_perm(v[0], v[1], 0x0040), __byte_perm(v[2], v[3], 0x0040), 0x5410);
+}
+
+template <int KR, int NC>
+__global__ void __launch_bounds__(kS8Threads)
+    inv_transform_s8_kernel(const int* __restrict__ coeff, int* __restrict__ out,
+                            const int* __restrict__ tv, const int* __restrict__ th,
+                            long long B, int lh, int lw, int shift2, int unit) {
+  using S = S8Shape<KR, NC>;
+  extern __shared__ __align__(16) int s8_stage[];  // two groups
+  const int H = 1 << lh, W = 1 << lw, lhw = lh + lw;
+  const int ls = (NC == 32 ? 5 : 6) - lw;            // log2 s
+  const int lrs = (KR == 16 ? 4 - lh : 0) + ls;      // log2 (r * s), blocks a job
+  const int lgrp = 12 - lhw;                         // log2 blocks a group
+  const long long groups = (B + (1 << lgrp) - 1) >> lgrp;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int mt = warp % S::kMT;  // the 16-row slice of its jobs this warp takes
+  if (blockIdx.x >= groups) return;
+
+  auto stage = [&](long long gi, int* buf) {
+    const long long w0 = gi * kS8GroupWords;
+    const int words = (int)min((long long)kS8GroupWords, (B << lhw) - w0);
+    if (unit == 4) stage_group<KR, NC, 4>(buf, coeff, w0, words, lh, lw, ls, lrs);
+    else if (unit == 2) stage_group<KR, NC, 2>(buf, coeff, w0, words, lh, lw, ls, lrs);
+    else stage_group<KR, NC, 1>(buf, coeff, w0, words, lh, lw, ls, lrs);
+  };
+  stage(blockIdx.x, s8_stage);
+  cp_async_commit();
+
+  // Stage 1's A (Tv^T, block-diagonal over the r stacked blocks when
+  // KR = 16) and stage 2's B (Th, block-diagonal over the s blocks side by
+  // side, its rows in the permuted k order below), once, in registers.
+  uint32_t a1[S::kKC1][4], b2[S::kNT][S::kKC2][2];
+#pragma unroll
+  for (int q = 0; q < S::kKC1; ++q)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int m = g + 8 * (r & 1);
+      int idx[4];
+      bool ok[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int K = 32 * q + 16 * (r >> 1) + 4 * t + e;
+        ok[e] = KR != 16 || (K < 16 && (K >> lh) == (m >> lh));
+        idx[e] = KR == 16 ? (K & (H - 1)) * H + (m & (H - 1)) : K * H + mt * 16 + m;
       }
+      a1[q][r] = pack_bytes(tv, idx, ok);
     }
-  }
-  __syncthreads();
-  for (int i = tid; i < n * hw; i += nth) {
-    const int g = i / hw, y = (i - g * hw) / W, k = i % W;
-    int8_t hi, lo;
-    split_s8(tmp[i], hi, lo);
-    A2h[(g * H + y) * L.Kp2 + k] = hi;
-    A2l[(g * H + y) * L.Kp2 + k] = lo;
-  }
-  __syncthreads();
-  // stage 2: both products share B = Th
+  // Stage 2 takes k in the order its A words come out of stage 1's
+  // accumulators: logical 16r + 4t + e of chunk q is column
+  // 32q + 16r + 8(e >> 1) + 2t + (e & 1) of stage 1's output.
+#pragma unroll
+  for (int j = 0; j < S::kNT; ++j)
+#pragma unroll
+    for (int q = 0; q < S::kKC2; ++q)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int n = 8 * j + g;
+        int idx[4];
+        bool ok[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int p = 32 * q + 16 * r + 8 * (e >> 1) + 2 * t + (e & 1);
+          ok[e] = NC == 64 || (p >> lw) == (n >> lw);
+          idx[e] = NC == 64 ? p * 64 + n : (p & (W - 1)) * W + (n & (W - 1));
+        }
+        b2[j][q][r] = pack_bytes(th, idx, ok);
+      }
+
   const int rnd = 1 << (shift2 - 1);
-  int* dst = out + blk0 * hw;
-  const int tiles2 = (L.Mp2 / 16) * (L.Np2 / 8);
-  for (int tile = warp; tile < tiles2; tile += nwarp) {
-    const int m0 = (tile / (L.Np2 / 8)) * 16, n0 = (tile % (L.Np2 / 8)) * 8;
-    const TilePair r = mma_tile(A2h, A2l, L.Kp2, B2, B2, L.Kp2, m0, n0, L.Kp2);
+  const bool out8 = ((uintptr_t)out & 7) == 0;
+  int it = 0;
+  for (long long gi = blockIdx.x; gi < groups; gi += gridDim.x, ++it) {
+    if (gi + gridDim.x < groups)
+      stage(gi + gridDim.x, s8_stage + ((it + 1) & 1) * kS8GroupWords);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int* buf = s8_stage + (it & 1) * kS8GroupWords;
+#pragma unroll 1
+    for (int u = 0; u < S::kTasksPerWarp; ++u) {
+      const int jb = (warp + 4 * u) / S::kMT;
+      const long long blk0 = (gi << lgrp) + (jb << lrs);  // the job's first block
+      if (blk0 >= B) continue;
+      // stage 1: D1 = A1 B1, B1 the job's coefficients, hi and lo bytes;
+      // lane (g, t) reads rows 4t + e at column g of each n-tile
+      const int* js = buf + jb * (KR * NC) + 4 * t * NC + g;
+      int d1[S::kNT][4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int m = m0 + gq + (e >> 1) * 8, x = n0 + tq * 2 + (e & 1);
-      if (m < n * H && x < W) {
-        const int acc = r.d1[e] * 256 + r.d2[e] + corr2[x];
-        dst[(long long)m * W + x] = clip16((acc + rnd) >> shift2);
+      for (int j = 0; j < S::kNT; ++j) {
+        const int* col = js + 8 * (j ^ t);
+        uint32_t bh[S::kKC1][2], bl[S::kKC1][2];
+#pragma unroll
+        for (int q = 0; q < S::kKC1; ++q)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            if (r < S::kRegs1) {
+              const int* v = col + (32 * q + 16 * r) * NC;
+              split4(v[0], v[NC], v[2 * NC], v[3 * NC], bh[q][r], bl[q][r]);
+            } else {
+              bh[q][r] = bl[q][r] = 0;  // rows 16-31: zero in A1
+            }
+          }
+        int hi[4] = {0, 0, 0, 0}, lo[4] = {64, 64, 64, 64};  // lo starts at the rounding
+#pragma unroll
+        for (int q = 0; q < S::kKC1; ++q) mma_k32<true, true>(hi, a1[q], bh[q]);
+#pragma unroll
+        for (int q = 0; q < S::kKC1; ++q) mma_k32<true, false>(lo, a1[q], bl[q]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d1[j][e] = clip16((hi[e] * 256 + lo[e]) >> 7);
+      }
+      // stage 2's A from the accumulators: chunk q's words are n-tiles
+      // 4q, 4q + 1 (k 0-15) and 4q + 2, 4q + 3 (k 16-31), rows g and g + 8
+      uint32_t a2h[S::kKC2][4], a2l[S::kKC2][4];
+#pragma unroll
+      for (int q = 0; q < S::kKC2; ++q)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int j = 4 * q + 2 * (r >> 1), e = 2 * (r & 1);
+          split4(d1[j][e], d1[j][e + 1], d1[j + 1][e], d1[j + 1][e + 1], a2h[q][r],
+                 a2l[q][r]);
+        }
+      // stage 2: D2 = A2 B2, then the output rows g and g + 8 of each n-tile
+      long long rb[2];
+      int ry[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = g + 8 * h;
+        rb[h] = blk0 + (KR == 16 ? (long long)((m >> lh) << ls) : 0);
+        ry[h] = (KR == 16 ? (m & (H - 1)) : mt * 16 + m) << lw;
+      }
+#pragma unroll
+      for (int j = 0; j < S::kNT; ++j) {
+        int hi[4] = {0, 0, 0, 0}, lo[4] = {rnd, rnd, rnd, rnd};
+#pragma unroll
+        for (int q = 0; q < S::kKC2; ++q) mma_k32<true, true>(hi, a2h[q], b2[j][q]);
+#pragma unroll
+        for (int q = 0; q < S::kKC2; ++q) mma_k32<false, true>(lo, a2l[q], b2[j][q]);
+        const int n = 8 * j + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long blk = rb[h] + (n >> lw);
+          if (blk >= B) continue;
+          int* dst = out + (blk << lhw) + ry[h] + (n & (W - 1));
+          const int o0 = clip16((hi[2 * h] * 256 + lo[2 * h]) >> shift2);
+          const int o1 = clip16((hi[2 * h + 1] * 256 + lo[2 * h + 1]) >> shift2);
+          if (out8) {
+            *reinterpret_cast<int2*>(dst) = make_int2(o0, o1);
+          } else {
+            dst[0] = o0;
+            dst[1] = o1;
+          }
+        }
       }
     }
+    __syncthreads();
   }
+}
+
+template <int KR, int NC>
+static int launch_s8(const int* coeff, int* out, const int* tv, const int* th,
+                     long long B, int lh, int lw, int shift2, int unit,
+                     cudaStream_t stream) {
+  const auto kernel = inv_transform_s8_kernel<KR, NC>;
+  const int smem = 2 * kS8GroupWords * (int)sizeof(int);
+  int dev = 0, sms = 0, per_sm = 0;
+  int e = set_smem((const void*)kernel, smem);
+  if (!e) e = (int)cudaGetDevice(&dev);
+  if (!e) e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (!e) e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kS8Threads, smem);
+  if (e) return e;
+  const long long groups = ((B << (lh + lw)) + kS8GroupWords - 1) / kS8GroupWords;
+  // blocks 64 wide: at most two CTAs an SM, each walking about two 1080p
+  // groups, the next group's copies under this one's products
+  if (NC == 64 && per_sm > 2) per_sm = 2;
+  const long long resident = sms * per_sm > 0 ? sms * per_sm : 1;
+  const unsigned grid = (unsigned)(groups < resident ? groups : resident);
+  kernel<<<grid, kS8Threads, smem, stream>>>(coeff, out, tv, th, B, lh, lw, shift2, unit);
+  return launch_status();
+}
+
+// log2 of a transform size 2-64, else -1
+static int log2_size(int n) {
+  for (int l = 1; l <= 6; ++l)
+    if (n == 1 << l) return l;
+  return -1;
 }
 
 __global__ void recon_sse_kernel(const int* __restrict__ resid,
@@ -472,14 +561,20 @@ VTM_API int vtm_inv_transform_s8(const int* coeff, int* out, const int* tv,
                                  const int* th, long long B, int H, int W,
                                  int bit_depth, void* stream) {
   if (B == 0) return 0;
-  const int G = group_size(H, W, 512);
-  const S8Layout L = s8_layout(H, W, G);
-  const int e = set_smem((const void*)inv_transform_s8_kernel, L.bytes);
-  if (e) return e;
-  const unsigned grid = (unsigned)((B + G - 1) / G);
-  inv_transform_s8_kernel<<<grid, kS8Threads, L.bytes, (cudaStream_t)stream>>>(
-      coeff, out, tv, th, B, H, W, G, 20 - bit_depth);
-  return launch_status();
+  const int lh = log2_size(H), lw = log2_size(W), shift2 = 20 - bit_depth;
+  if (lh < 0 || lw < 0) return (int)cudaErrorInvalidValue;
+  // words a copy: 16 bytes, a row of a 2-wide block, or what the alignment allows
+  const uintptr_t c = (uintptr_t)coeff;
+  const int unit = c % 8 ? 1 : c % 16 || W == 2 ? 2 : 4;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (H <= 16)
+    return W <= 32 ? launch_s8<16, 32>(coeff, out, tv, th, B, lh, lw, shift2, unit, st)
+                   : launch_s8<16, 64>(coeff, out, tv, th, B, lh, lw, shift2, unit, st);
+  if (H == 32)
+    return W <= 32 ? launch_s8<32, 32>(coeff, out, tv, th, B, lh, lw, shift2, unit, st)
+                   : launch_s8<32, 64>(coeff, out, tv, th, B, lh, lw, shift2, unit, st);
+  return W <= 32 ? launch_s8<64, 32>(coeff, out, tv, th, B, lh, lw, shift2, unit, st)
+                 : launch_s8<64, 64>(coeff, out, tv, th, B, lh, lw, shift2, unit, st);
 }
 
 // recon and orig as int16 / int32 of n samples; *sse (int64) is zeroed here.

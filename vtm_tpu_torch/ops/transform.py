@@ -32,7 +32,10 @@ Implementations:
       correction 128 * sum(t), and (hi << 8) + lo gives the int32 result
       exactly.  `_plain` repeats that arithmetic; `_cuda`
       (`vtm_inv_transform_s8`) runs the products on the int8 tensor cores
-      (mma.sync m16n8k32).  It equals `inv_transform_batch`.
+      (mma.sync m16n8k32) with lo = x & 255 unsigned (s8 x u8 and u8 x s8
+      products), which is the same sum with no correction term; small
+      blocks share the products' tiles, and stage 1's result goes to stage
+      2 in registers (csrc/transform.cu).  It equals `inv_transform_batch`.
 """
 
 from __future__ import annotations
