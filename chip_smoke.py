@@ -29,6 +29,10 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
      its count), timed there as the decode launches them, and on
      numpy-seeded batches the size of a 1080p 4:2:0 picture (the FIR also
      as a six-group dmvr_final_pack);
+   - the MC kernel on the inputs of every MMVD and GEO preselection call of
+     the port's RA encode of two 208x120 pictures on the card (one CU's
+     candidates a call), timed as the encode launches them, a line a batch
+     size (shape "encode");
    kernel and plain times from CUDA events: the
    kernel's device time (`ms`: a spin kernel queued ahead of the start
    event keeps the host's issue time out of the window; a row that cannot
@@ -83,7 +87,19 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    device="cuda"): three 208x120 encodes (CC-ALF, MIP and SAO engaged),
    byte-identical to the same encodes with device="cpu", and one 1920x1080
    picture at QP 37 (bench.py's north-star configuration), each stream
-   decoded hash-exact by the port's decoder;
+   decoded hash-exact by the port's decoder; then the inter encode through
+   RandomAccessEncoder(device="cuda") with RA's default tools, SAO and ALF:
+   (a) five 208x120 pictures (small208x9, whose first three frames are
+   small208's) at GOP 4, QP 32, byte-identical to the same encode with
+   device="cpu"; (b) three 416x240 pictures (bq416, JVET CTC
+   class D) at GOP 2, QP 37, under torch.profiler (CUDA activity), with
+   s/picture split into the FrameRMD wait, deblocking, SAO and ALF, the
+   MMVD and GEO preselection and the rest (host RD search, CABAC), the
+   preselection's MC calls and their device time, and the device's idle
+   share; both streams decoded hash-exact on the card; each inter encode
+   must launch vtm_mc_tiles and the RMD kernels, and a deblocking, SAO or
+   ALF kernel it leaves out must be one the decode of its stream leaves
+   out too (the two encodes together launch them all);
 6. the multi-device main path on lanes that share the one card
    (vtm_tpu_torch.parallel): dryrun_multichip on both pictures of the 1080p
    stream at gop 2 x tile 2 and at tile 8 (240 columns a lane), and on
@@ -102,7 +118,8 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    inside the RMD kernels, and the int8 transform, which the reference
    calls from its tests alone); the encodes' own
    counts, without the decodes that check their streams, prove that the
-   encoder's RMD, deblocking, SAO and ALF ran through the kernels;
+   encoder's RMD, deblocking, SAO and ALF, and the inter encodes' MC, ran
+   through the kernels;
 7. each kernel's bound line (device and call ms; the library call's ms
    where one was timed), the redesign order (each kernel's launches x
    (device ms - bound ms) per launch of its timed calls at the shape the
@@ -111,8 +128,10 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    pictures: the inter kernels' at the RA decode's recorded calls (the
    MC launches of the two 208x120 inter streams too), the others' at
    1080p (their launches on smaller streams too, which overstates
-   those); "shard" for its sharded luma chain, MC and reconstruction,
-   each shard case weighed as often as one run launches it; a kernel
+   those); "encode" for the inter encodes' own MC launches, at phase 3's
+   recorded preselection calls; "shard" for its sharded luma chain, MC
+   and reconstruction, each shard case weighed as often as one run
+   launches it; a kernel
    with launches at a shape where none of its cases was timed fails),
    the extended-plane SAO's shard launches beside an empty kernel, a copy
    of a shard's plane and the two torch calls that extend a shard (what an
@@ -155,6 +174,7 @@ maps).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -259,6 +279,22 @@ ENC_CASES = (("cc208_208x120_420_8", dict(qp=37, sao=True, alf=True, ccalf=True)
 ENC_KERNELS = ("vtm_rmd_angular", "vtm_rmd_mip", "vtm_rmd_reduce",
                "vtm_deblock_luma_ver", "vtm_deblock_chroma_ver", "vtm_sao_apply",
                "vtm_alf_classify", "vtm_alf_filter")
+# the inter encodes of phase 5, random access with RA's default tools, SAO and
+# ALF, as (source, width, height, frames, GOP size, QP): (a) on the card and on
+# the CPU, byte for byte (small208 has three frames; small208x9 continues
+# them); (b) at JVET CTC class D's size (the RA golden
+# stream's), I then POC 2 then POC 1, its stream decoded on the card.  A
+# 1080p inter picture would take the host's RD search many minutes.
+RA_ENC_SMALL = ("small208x9_208x120_420_8", 208, 120, 5, 4, 32)
+RA_ENC_D = ("bq416_416x240_420_8", 416, 240, 3, 2, 37)
+# the encode whose preselection MC calls phase 3 records and times: I, then
+# one B picture on POC 0
+RA_ENC_CAPTURE = ("small208_208x120_420_8", 208, 120, 2, 2, 32)
+# the shape of the inter encode's MC launches: one CU's MMVD or GEO candidates
+ENCODE = "encode"
+INTER_ENC_KERNELS = ("vtm_mc_tiles", "vtm_rmd_angular", "vtm_rmd_reduce",
+                     "vtm_deblock_luma_ver", "vtm_deblock_chroma_ver", "vtm_sao_apply",
+                     "vtm_alf_classify", "vtm_alf_filter")
 # decode kernels the encoder does not launch: only the decodes of its streams
 NOT_IN_ENCODER = {"vtm_ccalf_filter": "the encoder applies CC-ALF on the host "
                                       "(vtm_tpu_torch/encoder/alf_search.py:"
@@ -768,6 +804,76 @@ def check_inter_recorded(chk: KernelCheck, got, MK, RK):
                     lambda: RK.bdof_blend_batch_cuda(*args, **kw),
                     lambda: RK.bdof_blend_batch_plain(*args, **kw), timed=True,
                     ins=args, ops=bdof_ops(n, kw["w"], kw["h"]))
+
+
+def ra_encoder(case, device: str):
+    """The port's RandomAccessEncoder for an RA_ENC_* case, on `device`, with
+    a config of its own (the encoder switches RA's tools on in it)."""
+    from vtm_tpu_torch.encoder.enc_lib import EncoderConfig, RandomAccessEncoder
+
+    _, w, h, _, gop, qp = case
+    cfg = EncoderConfig(width=w, height=h, qp=qp, sao=True, alf=True)
+    return RandomAccessEncoder(cfg, gop_size=gop, device=device)
+
+
+def ra_frames(case) -> list:
+    from vtm_tpu_torch import testing as T
+
+    src, w, h, n, _, _ = case
+    return [T.read_source(src, w, h, i) for i in range(n)]
+
+
+def capture_encode_mc(MK):
+    """Arguments of every MC call of the port's RA encode of RA_ENC_CAPTURE on
+    the card: the MMVD and GEO preselection batches, one CU's candidates a
+    call (device tensors; the wrapper never writes its inputs)."""
+    real = MK.mc_tiles_pair
+    got = []
+
+    def record(*args, **kw):
+        got.append((args, kw))
+        return real(*args, **kw)
+
+    MK.mc_tiles_pair = record
+    try:
+        ra_encoder(RA_ENC_CAPTURE, "cuda").encode(ra_frames(RA_ENC_CAPTURE))
+    finally:
+        MK.mc_tiles_pair = real
+    if not got:
+        raise AssertionError(f"{RA_ENC_CAPTURE[0]}: no preselection MC call recorded")
+    return got
+
+
+def check_encode_recorded(chk: KernelCheck, got, MK):
+    """vtm_mc_tiles against its plain version on every recorded preselection
+    call of the RA encode, timed: the encode path's own shape (ENCODE), one
+    case a launch.  One line a batch size: its calls, and the kernel's device
+    ms and the plain version's a call."""
+    label = f"{RA_ENC_CAPTURE[0]} RA encode preselection"
+    sizes = {}
+    for (largs, cargs, bd), _ in got:
+        for args, lum in ((largs, True), (cargs, False)):
+            if args is None:
+                continue
+            taps, tile = MK.SHAPES[lum]
+            kw = dict(taps=taps, tile=tile, bd=bd)
+            planes, jobs, n = args[0], args[1:], args[1].shape[0]
+            chk.compare("vtm_mc_tiles", f"{label}, {n} tiles",
+                        lambda: MK.mc_tiles_cuda(*args, **kw),
+                        lambda: MK.mc_tiles_plain(*args, **kw), timed=True,
+                        ins=(mc_ref_bytes(planes, jobs, taps, tile), jobs),
+                        ops=mc_ops(n, taps, tile), quiet=True, shape=ENCODE)
+            size = sizes.setdefault((lum, n), [0, 0.0, 0.0])
+            size[0] += 1
+            size[1] += chk.last["ms"]
+            size[2] += chk.last["plain_ms"]
+    for (lum, n), (calls, ms, pms) in sorted(sizes.items()):
+        print(f"vtm_mc_tiles [{label}, {n} {'luma' if lum else 'chroma'} tiles a call]: "
+              f"{calls} calls, max |kernel - plain| = 0, kernel {ms / calls:.6f} ms "
+              f"a call (device), plain {pms / calls:.6f} ms", flush=True)
+    print(f"vtm_mc_tiles [{label}]: {sum(c for c, _, _ in sizes.values())} calls "
+          f"timed, kernel {sum(m for _, m, _ in sizes.values()):.6f} ms in all "
+          f"(device), plain {sum(p for _, _, p in sizes.values()):.6f} ms", flush=True)
 
 
 def pack_jobs(l0, l1, cargs, w: int, h: int, wc: int, hc: int, bd: int):
@@ -2121,44 +2227,52 @@ def encode_small(torch, KN, Decoder, IntraEncoder, name: str, kw: dict) -> dict:
     if bits != cpu_bits:
         raise AssertionError(f"encode {name}: cuda and cpu streams differ "
                              f"({len(bits)} vs {len(cpu_bits)} bytes)")
-    check_own_decode(Decoder, name, bits, enc.last_recon)
-    done = KN.launch_counts()
+    dec_l = {k: v for k, v in check_own_decode(KN, Decoder, name, bits, enc).items() if v}
     enc_l = {k: after[k] - before[k] for k in after if after[k] > before[k]}
-    dec_l = {k: done[k] - after[k] for k in after if done[k] > after[k]}
     print(f"encode {name} {kw}: {len(bits)} bytes, identical on cuda and cpu, "
           f"decoded hash-exact; {dt:.4f} s on cuda; launches: encode {enc_l}, "
           f"decode of its stream {dec_l}", flush=True)
     return {k: after[k] - before[k] for k in after}
 
 
-def check_own_decode(Decoder, name: str, bits: bytes, recon) -> None:
+def check_own_decode(KN, Decoder, name: str, bits: bytes, enc, n_frames: int = 1) -> dict:
+    """The port's decoder on the card verifies the hash of each of the
+    stream's `n_frames` pictures, and the picture the encoder `enc` coded
+    last equals its reconstruction.  Returns the decode's launches."""
     import numpy as np
 
+    before = KN.launch_counts()
     dec = Decoder(device="cuda")
     pics = dec.decode_stream(bits)
-    if len(pics) != 1 or len(dec.hash_results) != 1 or not dec.hash_results[0].ok:
-        raise AssertionError(f"encode {name}: the port's decoder does not "
-                             "verify the stream's hash")
-    if not all(np.array_equal(p, r) for p, r in zip(pics[0].planes, recon)):
+    after = KN.launch_counts()
+    if len(pics) != n_frames or len(dec.hash_results) != n_frames \
+            or not all(hr.ok for hr in dec.hash_results):
+        raise AssertionError(f"encode {name}: the port's decoder does not verify "
+                             "every picture's hash")
+    last = next(p for p in pics if p.poc == enc.dcs.sh.poc)
+    if not all(np.array_equal(p, r) for p, r in zip(last.planes, enc.last_recon)):
         raise AssertionError(f"encode {name}: decoded picture != encoder recon")
+    return {k: after[k] - before[k] for k in after}
 
 
-def encode_hd(torch, KN, Decoder, IntraEncoder):
-    """One 1920x1080 picture (mirror-tiled bq416) at QP 37 with bench.py's
-    configuration on the card; decoded hash-exact by the port.  Prints
-    s/picture and its split: the host's wait for FrameRMD's results (the one
-    fetch of the reductions, not the cached lookups after it), the
-    deblocking stage, the rest (host RD search, CABAC); and FrameRMD's span
-    on the device timeline (CUDA events around its construction: uploads,
-    kernels and the gaps while the host prepares the next class).  Returns
-    the launches of the encode alone."""
-    from vtm_tpu_torch import testing as T
+@contextlib.contextmanager
+def encode_stages(torch):
+    """Times the stages of the encodes run inside it, on the host's clock:
+    the wait for FrameRMD's results (the one fetch of the reductions, not
+    the cached lookups after it), the deblocking stage, the SAO and ALF stage
+    (searches, the device filters, the slice rewrite) and the MMVD and GEO
+    preselection; and on the device timeline (CUDA events) FrameRMD's span
+    (uploads, kernels and the gaps while the host prepares the next class)
+    and each preselection MC call's span (its kernel and the host's issue of
+    it).  Yields the dict of readings."""
+    from vtm_tpu_torch.encoder import enc_lib as EL
     from vtm_tpu_torch.encoder import rmd as RMD
-    from vtm_tpu_torch.encoder.enc_lib import EncoderConfig
     from vtm_tpu_torch.ops import deblock as DBP
+    from vtm_tpu_torch.ops import mc_kernel as MK
 
-    spans = {"rmd_events": [], "rmd_wait": 0.0, "rmd_calls": 0, "deblock": 0.0}
-    real_rmd, real_db = RMD.FrameRMD, DBP.deblock_picture
+    spans = {"rmd_events": [], "rmd_wait": 0.0, "rmd_calls": 0, "deblock": 0.0,
+             "sao_alf": 0.0, "presel": 0.0, "mc_events": []}
+    real_rmd = RMD.FrameRMD
 
     class TimedFrameRMD(real_rmd):
         def __init__(self, *args, **kw):
@@ -2179,35 +2293,197 @@ def encode_hd(torch, KN, Decoder, IntraEncoder):
             spans["rmd_wait"] += time.perf_counter() - t0
             return out
 
-    def timed_deblock(*args, **kw):
-        t0 = time.perf_counter()
-        real_db(*args, **kw)
-        spans["deblock"] += time.perf_counter() - t0
+    def timed(key, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                spans[key] += time.perf_counter() - t0
+        return call
+
+    real_mc = MK.mc_tiles_pair
+
+    def mc_span(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_mc(*args, **kw)
+        end.record()
+        spans["mc_events"].append((start, end))
+        return out
+
+    patches = [(RMD, "FrameRMD", TimedFrameRMD),
+               (DBP, "deblock_picture", timed("deblock", DBP.deblock_picture)),
+               (EL.IntraEncoder, "_sao_and_rewrite",
+                timed("sao_alf", EL.IntraEncoder._sao_and_rewrite)),
+               (EL.InterEncoder, "_preselect_mmvd",
+                timed("presel", EL.InterEncoder._preselect_mmvd)),
+               (EL.InterEncoder, "_preselect_geo",
+                timed("presel", EL.InterEncoder._preselect_geo)),
+               (MK, "mc_tiles_pair", mc_span)]
+    reals = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, fn in patches:
+        setattr(obj, name, fn)
+    try:
+        yield spans
+    finally:
+        for obj, name, fn in reals:
+            setattr(obj, name, fn)
+        torch.cuda.synchronize()
+        spans["rmd_ms"] = sum(a.elapsed_time(b) for a, b in spans["rmd_events"])
+        spans["mc_ms"] = sum(a.elapsed_time(b) for a, b in spans["mc_events"])
+
+
+def encode_hd(torch, KN, Decoder, IntraEncoder):
+    """One 1920x1080 picture (mirror-tiled bq416) at QP 37 with bench.py's
+    configuration on the card; decoded hash-exact by the port.  Prints
+    s/picture and its split (encode_stages): the FrameRMD wait, the
+    deblocking stage, the rest (host RD search, CABAC); and FrameRMD's span
+    on the device timeline.  Returns the launches of the encode alone."""
+    from vtm_tpu_torch import testing as T
+    from vtm_tpu_torch.encoder.enc_lib import EncoderConfig
 
     frames = [T.hd_source()]
     before = KN.launch_counts()
-    RMD.FrameRMD, DBP.deblock_picture = TimedFrameRMD, timed_deblock
-    try:
+    with encode_stages(torch) as spans:
         t0 = time.perf_counter()
         enc = IntraEncoder(EncoderConfig(width=1920, height=1080, qp=37),
                            device="cuda")
         bits = enc.encode(frames)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-    finally:
-        RMD.FrameRMD, DBP.deblock_picture = real_rmd, real_db
     after = KN.launch_counts()
-    check_own_decode(Decoder, "hd_source 1920x1080", bits, enc.last_recon)
-    rmd_ms = sum(s.elapsed_time(e) for s, e in spans["rmd_events"])
+    check_own_decode(KN, Decoder, "hd_source 1920x1080", bits, enc)
     rest = dt - spans["rmd_wait"] - spans["deblock"]
     print(f"encode 1920x1080 (bq416 mirror-tiled) QP 37: {len(bits)} bytes, "
           f"decoded hash-exact; {dt:.4f} s/picture = FrameRMD wait "
           f"{spans['rmd_wait']:.4f} s (its one fetch of the reductions; "
           f"{spans['rmd_calls']} stats lookups in all) + deblock "
           f"{spans['deblock']:.4f} s + host RD and CABAC {rest:.4f} s; FrameRMD "
-          f"span on the device timeline {rmd_ms:.4f} ms (CUDA events: uploads, "
+          f"span on the device timeline {spans['rmd_ms']:.4f} ms (CUDA events: uploads, "
           f"kernels, host gaps)", flush=True)
     return {k: after[k] - before[k] for k in after}
+
+
+@contextlib.contextmanager
+def cpu_twin(case):
+    """The device="cpu" encode of an RA_ENC_* case in a process of its own
+    (one torch thread), so that it runs beside the card's: yields the
+    process, which writes the stream to its stdout and its seconds to its
+    stderr; the process is killed on the way out if it still runs."""
+    code = ("import sys, time\n"
+            "import torch\n"
+            "torch.set_num_threads(1)\n"
+            f"sys.path.insert(0, {ROOT!r})\n"
+            "import chip_smoke as CS\n"
+            "t0 = time.perf_counter()\n"
+            f"bits = CS.ra_encoder({case!r}, 'cpu').encode(CS.ra_frames({case!r}))\n"
+            "sys.stderr.write(f'{time.perf_counter() - t0}\\n')\n"
+            "sys.stdout.buffer.write(bits)\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        yield proc
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def encode_ra_small(torch, KN, Decoder, twin) -> dict:
+    """(a) RA_ENC_SMALL on the card, and its CPU twin (`twin`, the process of
+    cpu_twin, started ahead of phase 5): identical bytes, and the card's
+    stream decoded hash-exact on the card.  Returns the launches of the
+    card's encode alone and those of the decode of its stream."""
+    src, w, h, n, gop, qp = RA_ENC_SMALL
+    label = f"RA {src} {n} frames GOP {gop} QP {qp}"
+    frames = ra_frames(RA_ENC_SMALL)
+    before = KN.launch_counts()
+    t0 = time.perf_counter()
+    enc = ra_encoder(RA_ENC_SMALL, "cuda")
+    bits = enc.encode(frames)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    after = KN.launch_counts()
+    cpu_bits, err = twin.communicate(timeout=900)
+    if twin.returncode != 0:
+        raise AssertionError(f"encode {label} on the cpu failed: {err.decode()[-2000:]}")
+    dt_cpu = float(err.decode().strip().splitlines()[-1])
+    if bits != cpu_bits:
+        raise AssertionError(f"encode {label}: cuda and cpu streams differ "
+                             f"({len(bits)} vs {len(cpu_bits)} bytes)")
+    dec_l = check_own_decode(KN, Decoder, label, bits, enc, n)
+    launched = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    print(f"encode {label} (sao, alf, RA's default tools): {len(bits)} bytes, "
+          f"identical on cuda and cpu, decoded hash-exact on cuda; "
+          f"{dt / n:.4f} s/picture on cuda, {dt_cpu / n:.4f} s/picture on cpu "
+          f"(the two ran side by side, the cpu one in a process of its own); "
+          f"launches of the encode {launched}", flush=True)
+    return {k: after[k] - before[k] for k in after}, dec_l
+
+
+def device_busy_ms(prof) -> float:
+    """Device time of every kernel, copy and set the profiler saw (CUDA
+    activity only: no host rows that repeat it), in ms."""
+    total = 0.0
+    for row in prof.key_averages():
+        t = getattr(row, "self_device_time_total", None)
+        total += t if t is not None else getattr(row, "self_cuda_time_total", 0)
+    return total / 1e3
+
+
+def encode_ra_d(torch, KN, Decoder) -> dict:
+    """(b) RA_ENC_D on the card, under torch.profiler (CUDA activity only);
+    its stream decoded hash-exact on the card.  Prints s/picture and its
+    split (encode_stages: FrameRMD wait, deblocking, SAO and ALF,
+    preselection, the rest being host RD search and CABAC), the
+    preselection MC calls (count, summed device-timeline span, the kernel's
+    own device time), the device's busy time and idle share of the encode's
+    wall time, and the encode's own launches.  Returns those launches and
+    those of the decode of its stream."""
+    src, w, h, n, gop, qp = RA_ENC_D
+    label = f"RA {src} {n} frames GOP {gop} QP {qp}"
+    frames = ra_frames(RA_ENC_D)
+    before = KN.launch_counts()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    with encode_stages(torch) as spans, prof:
+        t0 = time.perf_counter()
+        enc = ra_encoder(RA_ENC_D, "cuda")
+        bits = enc.encode(frames)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    after = KN.launch_counts()
+    dec_l = check_own_decode(KN, Decoder, label, bits, enc, n)
+    launched = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    busy = device_busy_ms(prof)
+    mc_kernel = sum(getattr(r, "self_device_time_total", 0) for r in prof.key_averages()
+                    if "mc_tiles_kernel" in r.key) / 1e3
+    rest = dt - spans["rmd_wait"] - spans["deblock"] - spans["sao_alf"] - spans["presel"]
+    types = " ".join(f"POC {r['poc']} {r['type']} {r['bits']} bits"
+                     for r in enc.frame_log)
+    print(f"encode {label} (sao, alf, RA's default tools): {len(bits)} bytes "
+          f"({types}), decoded hash-exact on cuda; {dt / n:.4f} s/picture = "
+          f"FrameRMD wait {spans['rmd_wait'] / n:.4f} s + deblock "
+          f"{spans['deblock'] / n:.4f} s + SAO and ALF {spans['sao_alf'] / n:.4f} s "
+          f"+ MMVD and GEO preselection {spans['presel'] / n:.4f} s + host RD and "
+          f"CABAC {rest / n:.4f} s ({dt:.4f} s in all, under the profiler)", flush=True)
+    print(f"encode {label} preselection: {len(spans['mc_events'])} MC calls "
+          f"({launched.get('vtm_mc_tiles', 0)} vtm_mc_tiles launches), "
+          f"{spans['mc_ms']:.4f} ms summed span on the device timeline (CUDA events "
+          f"around each call: kernel and issue), {mc_kernel:.4f} ms of mc_tiles_kernel "
+          f"device time (profiler), {spans['presel']:.4f} s on the host's clock",
+          flush=True)
+    if busy > 0:
+        print(f"encode {label} device: {busy:.4f} ms busy (profiler: kernels, copies, "
+              f"sets) of {dt * 1e3:.4f} ms wall, idle share {1 - busy / (dt * 1e3):.6f}; "
+              f"FrameRMD span {spans['rmd_ms']:.4f} ms (CUDA events)", flush=True)
+    else:
+        print(f"encode {label} device: idle share not measured (the profiler saw no "
+              "device time)", flush=True)
+    print(f"encode {label} launches of the encode: {launched}; of the decode of its "
+          f"stream: { {k: v for k, v in dec_l.items() if v} }", flush=True)
+    return {k: after[k] - before[k] for k in after}, dec_l
 
 
 def redesign_order(chk: KernelCheck, launches: dict) -> list:
@@ -2379,6 +2655,7 @@ def main() -> int:
     random_case(torch, chk, dev)
     check_inter_recorded(chk, capture_inter_inputs(MK, RK, Decoder), MK, RK)
     check_inter_1080p(chk, MK, RK, dev)
+    check_encode_recorded(chk, capture_encode_mc(MK), MK)
     check_satd(chk, dev)
     check_rmd(torch, chk, T.hd_source()[0], 8, "1080p bq416 mirror-tiled", timed=True,
               ptxas=ptxas)
@@ -2430,19 +2707,47 @@ def main() -> int:
         raise AssertionError(f"an inter kernel did not run on {RA_STREAM}")
     decode_golden(torch, KN, Decoder)
 
-    # 5. the encode main path, with the launch counts of this run only
-    KN.reset_launch_counts()
-    encodes = [encode_small(torch, KN, Decoder, IntraEncoder, name, kw)
-               for name, kw in ENC_CASES]
-    encodes.append(encode_hd(torch, KN, Decoder, IntraEncoder))
+    # 5. the encode main path, with the launch counts of this run only; the
+    # CPU twin of the inter encode (a) runs beside it
+    with cpu_twin(RA_ENC_SMALL) as twin:
+        KN.reset_launch_counts()
+        encodes = [encode_small(torch, KN, Decoder, IntraEncoder, name, kw)
+                   for name, kw in ENC_CASES]
+        encodes.append(encode_hd(torch, KN, Decoder, IntraEncoder))
+        inter = {"(a)": encode_ra_small(torch, KN, Decoder, twin),
+                 "(b)": encode_ra_d(torch, KN, Decoder)}
     enc_counts = KN.launch_counts()
-    enc_only = {k: sum(c[k] for c in encodes) for k in enc_counts}
+    enc_only = {k: sum(c[k] for c in encodes + [e for e, _ in inter.values()])
+                for k in enc_counts}
     print(f"launches, the encodes alone: {enc_only}", flush=True)
     print(f"launches, encode main path (the encodes and the decodes of their "
           f"streams): {enc_counts}", flush=True)
     idle = [k for k in ENC_KERNELS if enc_only[k] == 0]
     if idle:
         raise AssertionError(f"the encodes did not launch {idle}")
+    # each inter encode runs its preselection through vtm_mc_tiles and its I
+    # picture's RMD through the RMD kernels; a filter kernel one of them
+    # leaves out must be one its stream does not use (the decode of the
+    # stream launches it no more), and the two together launch every kernel
+    # of INTER_ENC_KERNELS
+    for label, (c, dec_l) in inter.items():
+        idle = [k for k in ("vtm_mc_tiles", "vtm_rmd_angular", "vtm_rmd_reduce")
+                if c[k] == 0]
+        if idle:
+            raise AssertionError(f"the inter encode {label} did not launch {idle}")
+        for k in INTER_ENC_KERNELS:
+            if c[k] == 0 and dec_l[k]:
+                raise AssertionError(f"the inter encode {label} did not launch {k}, "
+                                     "which the decode of its stream launches")
+            if c[k] == 0:
+                print(f"the inter encode {label} launched no {k}, nor does the decode "
+                      "of its stream: its search left the tool off", flush=True)
+    idle = [k for k in INTER_ENC_KERNELS if sum(c[k] for c, _ in inter.values()) == 0]
+    if idle:
+        raise AssertionError(f"the inter encodes did not launch {idle}")
+    # the inter encodes' own MC launches run at the encode's shape
+    enc_mc = {k: sum(c[k] for c, _ in inter.values()) if k == "vtm_mc_tiles" else 0
+              for k in enc_counts}
     for k, why in NOT_IN_ENCODER.items():
         print(f"{k}: not launched by the encoder: {why}", flush=True)
 
@@ -2486,8 +2791,9 @@ def main() -> int:
                             library_ms=row["library_ms"]))
     # what a redesign of each kernel could save on the main paths at most,
     # each launch weighed at the shape it runs at
-    launches = {k: {"picture": dec_counts[k] + enc_counts[k] + mesh_by["picture"][k],
-                    "shard": mesh_by["shard"][k]} for k in dec_counts}
+    launches = {k: {"picture": dec_counts[k] + enc_counts[k] - enc_mc[k]
+                    + mesh_by["picture"][k], "shard": mesh_by["shard"][k],
+                    ENCODE: enc_mc[k]} for k in dec_counts}
     order = redesign_order(chk, launches)
     print("redesign order, main-path launches x (device ms - bound ms) per launch at the "
           "shape each runs at: " + ", ".join(f"{name} {gap:.6f} ms ({' + '.join(parts)})"

@@ -6,7 +6,8 @@
 (b) the port's deblock_picture, sao_picture and alf_picture equal vtm_tpu's
     on the planes an encode hands them;
 (c) the app encodes and writes its recon with jax unimportable;
-(d) a missing CUDA device raises; inter GOPs are refused.
+(d) a missing CUDA device raises.
+The inter GOPs of the app are held to the reference in test_torch_apps.py.
 """
 
 import copy
@@ -23,7 +24,6 @@ from vtm_tpu.encoder import enc_lib as ref_enc
 from vtm_tpu.encoder.enc_lib import EncoderConfig
 from vtm_tpu_torch import testing as T
 from vtm_tpu_torch.decoder.declib import Decoder
-from vtm_tpu_torch.encoder import app
 from vtm_tpu_torch.encoder.enc_lib import IntraEncoder
 from vtm_tpu_torch.ops import alf as ALFP
 from vtm_tpu_torch.ops import deblock as DBP
@@ -159,14 +159,6 @@ def test_app_round_trip_without_jax(tmp_path):
     assert res.stdout.strip().splitlines()[-1] == "ok"
     assert bits.read_bytes() == ref_bits.read_bytes()
     assert rec.read_bytes() == ref_rec.read_bytes()
-
-
-def test_app_refuses_inter_gops(tmp_path):
-    src = os.path.join(ROOT, "testdata", "tiny64_64x64_420_8.yuv")
-    with pytest.raises(NotImplementedError, match="inter"):
-        app.main(["--InputFile=" + src, "--SourceWidth=64", "--SourceHeight=64",
-                  "--IntraPeriod=32", f"--BitstreamFile={tmp_path / 'o.bit'}",
-                  "--device", "cpu"])
 
 
 def test_cuda_requested_without_cuda_raises(monkeypatch):

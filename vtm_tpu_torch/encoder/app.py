@@ -7,10 +7,13 @@ Usage:  python -m vtm_tpu_torch.encoder.app -c cfg/encoder_intra_vtm.cfg \
 
 Supports the reference's `key : value` config-file grammar and
 `--Key=value` CLI overrides (program_options_lite equivalent); unknown
-options are accepted and ignored.  IntraPeriod 1 encodes all-intra through the port's IntraEncoder on the
+options are accepted and ignored.  The encoder is picked as the
+reference app picks it: IntraPeriod 1 all-intra (IntraEncoder), GOPSize
+above 2 random access (RandomAccessEncoder), Frame1 B low-delay B
+(LowDelayBEncoder), otherwise low-delay P (InterEncoder).  It runs on the
 given torch device (default cuda; without CUDA it fails rather than run
-elsewhere); the inter encoders are not ported yet and raise.  --ReconFile
-decodes the stream with the port's Decoder on the same device.
+elsewhere).  --ReconFile decodes the stream with the port's Decoder on the
+same device.
 """
 
 from __future__ import annotations
@@ -80,16 +83,15 @@ def main(argv=None):
     if not (w and h and infile):
         print("need InputFile, SourceWidth, SourceHeight", file=sys.stderr)
         return 2
-    if intra_period != 1:
-        raise NotImplementedError(
-            f"IntraPeriod {intra_period}: the port encodes all-intra only "
-            "(IntraPeriod 1); the inter encoders are the next slice of the port")
 
     import numpy as np
 
     from vtm_tpu_torch.common.types import ChromaFormat
     from vtm_tpu_torch.utils import yuv_io
-    from vtm_tpu_torch.encoder.enc_lib import EncoderConfig, IntraEncoder
+    from vtm_tpu_torch.encoder.enc_lib import (
+        EncoderConfig, InterEncoder, IntraEncoder, LowDelayBEncoder,
+        RandomAccessEncoder,
+    )
 
     fmt = yuv_io.YuvFormat(w, h, ChromaFormat.YUV420, bd)
     frames = yuv_io.read_yuv(infile, fmt, n)
@@ -99,7 +101,18 @@ def main(argv=None):
         cfg.frame_rate = float(opts.get("FrameRate", 30))
     # EncAppCfg's SEIDecodedPictureHash default (0), as the reference app
     cfg.hash_sei = geti("SEIDecodedPictureHash", 0) != 0
-    enc = IntraEncoder(cfg, device=device)
+    gop_size = geti("GOPSize", 1)
+    frame1 = opts.get("Frame1", "")
+    if intra_period == 1:
+        enc = IntraEncoder(cfg, device=device)
+    elif gop_size > 2:
+        # hierarchical GOP (encoder_randomaccess_vtm.cfg shape)
+        enc = RandomAccessEncoder(cfg, gop_size=min(gop_size, 16),
+                                  device=device)
+    elif frame1.strip().startswith("B"):
+        enc = LowDelayBEncoder(cfg, device=device)
+    else:
+        enc = InterEncoder(cfg, device=device)
     t0 = time.time()
     bits = enc.encode(frames)
     dt = time.time() - t0
