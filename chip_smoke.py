@@ -20,15 +20,19 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
 3. each kernel against its plain torch version, exactly:
    - the filter kernels on the real chain inputs of POC 0 of
      testdata/ai_full_hd1080_qp37.bit (1920x1080 4:2:0 8-bit, LMCS +
-     deblock + SAO + ALF + CC-ALF), and on a numpy-seeded 10-bit 4:4:4
-     case;
+     deblock + SAO + ALF + CC-ALF), and at each smaller picture size the
+     counted paths launch them at, on the pictures of one stream that
+     together run every stage the stream runs: ai444_screen_qp32 (208x120
+     4:2:0, SAO and ALF in every component), ai_full_bq416_qp27 (416x240
+     4:2:0) and ai422_small208_qp32 (208x120 4:2:2); and on a
+     numpy-seeded 10-bit 4:4:4 case;
    - the MC, DMVR-search, FIR and BDOF kernels on the inputs of every call
      of the port's own CUDA decode of testdata/ra_full_bq416_qp37.bit
      (416x240 RA, every inter tool on; the FIR group by group and as
      dmvr_final_pack's one launch; each DMVR and BDOF call's size beside
-     its count), timed there as the decode launches them, and on
-     numpy-seeded batches the size of a 1080p 4:2:0 picture (the FIR also
-     as a six-group dmvr_final_pack);
+     its count) and of ra_full_small208_qp32 (208x120 RA), timed there as
+     the decode launches them, and on numpy-seeded batches the size of a
+     1080p 4:2:0 picture (the FIR also as a six-group dmvr_final_pack);
    - the MC kernel on the inputs of every MMVD and GEO preselection call of
      the port's RA encode of two 208x120 pictures on the card (one CU's
      candidates a call), timed as the encode launches them, a line a batch
@@ -47,8 +51,9 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
      ms, and each kernel's threads, shared bytes, resident blocks an SM,
      positions a block, registers and spills; the reduction beside its
      library call, torch.min over the angular and over the MIP columns,
-     held equal first), and on numpy-seeded 10-bit 256x192 and 1920x1080
-     pictures;
+     held equal first), timed the same way on frame 0 of small208 (208x120)
+     and of bq416 (416x240), the sizes of the smaller encodes, and checked
+     on numpy-seeded 10-bit 256x192 and 1920x1080 pictures;
    - the two inverse transforms (int32 MACs; int8 tensor cores) on batches
      the size of a 1920x1080 plane, every block size and kind pair, 8- and
      10-bit, each against the plain version and the two against each
@@ -62,7 +67,9 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
      248-column shard as the sharded chain pads it; the extended-plane SAO
      on the eight VER shards, and the device time of the torch cat and
      edge_pad that build a shard's extended plane; the recon/SSE epilogue
-     on two 1080p planes of 32x32 blocks;
+     on two 1080p planes of 32x32 blocks; the port's halo_exchange on the
+     eight 240-column luma shards, transposed, 8 halo rows a side (device
+     ms beside its bytes bound and the shard floors);
    - the multi-device path's MC and reconstruction kernels at the shapes
      its lanes launch them (phase 6's own inputs): vtm_mc_tiles on one
      lane's share of each sharded MC batch (the 1080p-sized seeded batch
@@ -99,7 +106,17 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    share; both streams decoded hash-exact on the card; each inter encode
    must launch vtm_mc_tiles and the RMD kernels, and a deblocking, SAO or
    ALF kernel it leaves out must be one the decode of its stream leaves
-   out too (the two encodes together launch them all);
+   out too (the two encodes together launch them all); then the
+   GOP-parallel encode through vtm_tpu_torch.parallel.gop.encode_parallel(
+   device="cuda") with 2 spawned workers and with 1 (in-process): (c) two
+   1080p pictures all-intra at QP 37, a segment each, and (d) four
+   208x120 pictures RA (small208x9, GOP 2, QP 32, SAO; ALF off, because
+   parcat keeps only the first segment's ALF APS), two segments of an I
+   and a B picture; the two runs' streams identical and decoded
+   hash-exact on the card, s/picture of both and their ratio beside the
+   host's cores and torch's threads; the workers return their launch
+   counts with their streams, and each run must launch the RMD and
+   deblocking kernels, (d) also vtm_mc_tiles;
 6. the multi-device main path on lanes that share the one card
    (vtm_tpu_torch.parallel): dryrun_multichip on both pictures of the 1080p
    stream at gop 2 x tile 2 and at tile 8 (240 columns a lane), and on
@@ -121,18 +138,21 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    encoder's RMD, deblocking, SAO and ALF, and the inter encodes' MC, ran
    through the kernels;
 7. each kernel's bound line (device and call ms; the library call's ms
-   where one was timed), the redesign order (each kernel's launches x
-   (device ms - bound ms) per launch of its timed calls at the shape the
-   launches run at: "picture" for the decode and encode paths and for the
-   multi-device path's gop-batched chain, whose lanes take whole
-   pictures: the inter kernels' at the RA decode's recorded calls (the
-   MC launches of the two 208x120 inter streams too), the others' at
-   1080p (their launches on smaller streams too, which overstates
-   those); "encode" for the inter encodes' own MC launches, at phase 3's
-   recorded preselection calls; "shard" for its sharded luma chain, MC
-   and reconstruction, each shard case weighed as often as one run
-   launches it; a kernel
-   with launches at a shape where none of its cases was timed fails),
+   where one was timed), the launches at each shape, and the redesign
+   order (each kernel's launches x (device ms - bound ms) per launch of
+   its timed calls at the shape the launches run at, a part a shape: for
+   the decode and encode paths and the multi-device path's gop-batched
+   chain, whose lanes take whole pictures, the picture's size and chroma
+   format, as "picture 208x120 420", each stream's, encode's and GOP
+   case's launches taken from count deltas around it and held to add up
+   to its phase's counts: the filter kernels' at phase 3's chain pictures
+   of that size, the RMD kernels' at the classes of a source of that size,
+   the inter kernels' at the recorded calls of the RA decode of that size;
+   "encode" for the inter encodes' own MC launches, at phase 3's recorded
+   preselection calls; "shard" for the sharded luma chain, MC and
+   reconstruction, each shard case weighed as often as one run launches
+   it; a kernel with launches at a shape where none of its cases was
+   timed fails),
    the extended-plane SAO's shard launches beside an empty kernel, a copy
    of a shard's plane and the two torch calls that extend a shard (what an
    entry reading the shard and its halo in place would save), one JSON
@@ -292,6 +312,34 @@ RA_ENC_D = ("bq416_416x240_420_8", 416, 240, 3, 2, 37)
 RA_ENC_CAPTURE = ("small208_208x120_420_8", 208, 120, 2, 2, 32)
 # the shape of the inter encode's MC launches: one CU's MMVD or GEO candidates
 ENCODE = "encode"
+# the streams whose chain inputs phase 3 times the filter kernels on, one for
+# each picture size below 1080p that the counted paths launch them at (the
+# first has SAO and ALF in every component; none of the 208x120 4:2:0
+# streams the paths decode has SAO); 1080p is POC 0 of HD_STREAM
+FILTER_SIZE_STREAMS = ("ai444_screen_qp32", "ai_full_bq416_qp27", "ai422_small208_qp32")
+# the stream whose MC, DMVR, FIR and BDOF calls phase 3 records and times at
+# 208x120 (RA_STREAM's are the 416x240 ones)
+INTER_SMALL_STREAM = "ra_full_small208_qp32"
+# the sources whose frame 0 phase 3 times the RMD kernels on below 1080p, as
+# (source, width, height): every MIP launch is small208's (ENC_CASES), the
+# 416x240 ones RA (b)'s I picture
+RMD_SIZE_SOURCES = (("small208_208x120_420_8", 208, 120),
+                    ("bq416_416x240_420_8", 416, 240))
+# the GOP-parallel encodes of phase 5 (vtm_tpu_torch.parallel.gop), each run
+# with 2 workers and then 1: (c) two 1080p pictures all-intra with bench.py's
+# north-star configuration, a segment each; (d) four 208x120 pictures RA,
+# two segments of an I and a B picture, SAO on and ALF off: parcat drops the
+# ALF APS of every segment after the first, as the reference's does
+# (apps/parcat.py), so a stitched stream with ALF decodes its later
+# segments with the first one's filters
+GOP_CASES = (
+    ("(c)", "intra", "hd_source", dict(width=1920, height=1080, qp=37), 2, 1, None,
+     ("vtm_rmd_angular", "vtm_rmd_reduce", "vtm_deblock_luma_ver",
+      "vtm_deblock_chroma_ver")),
+    ("(d)", "ra", "small208x9_208x120_420_8",
+     dict(width=208, height=120, qp=32, sao=True), 4, 2, dict(gop_size=2),
+     ("vtm_mc_tiles", "vtm_rmd_angular", "vtm_rmd_reduce", "vtm_deblock_luma_ver",
+      "vtm_deblock_chroma_ver")))
 INTER_ENC_KERNELS = ("vtm_mc_tiles", "vtm_rmd_angular", "vtm_rmd_reduce",
                      "vtm_deblock_luma_ver", "vtm_deblock_chroma_ver", "vtm_sao_apply",
                      "vtm_alf_classify", "vtm_alf_filter")
@@ -300,6 +348,21 @@ NOT_IN_ENCODER = {"vtm_ccalf_filter": "the encoder applies CC-ALF on the host "
                                       "(vtm_tpu_torch/encoder/alf_search.py:"
                                       "derive_ccalf, called from "
                                       "encoder/enc_lib.py)"}
+
+
+def size_key(w: int, h: int, fmt: str) -> str:
+    """The shape phase 7 weighs a launch on a whole picture at: its luma
+    size and chroma format, as `picture 1920x1080 420`."""
+    return f"picture {w}x{h} {fmt}"
+
+
+def planes_key(planes) -> str:
+    """size_key of a picture's planes (Y, or Y, Cb, Cr)."""
+    h, w = planes[0].shape
+    if len(planes) == 1:
+        return size_key(w, h, "400")
+    hc, wc = planes[1].shape
+    return size_key(w, h, {(2, 2): "420", (1, 2): "422", (1, 1): "444"}[(h // hc, w // wc)])
 
 
 def card_line() -> str:
@@ -486,17 +549,18 @@ class KernelCheck:
     def compare(self, kernel: str, label: str, cuda_fn, plain_fn,
                 timed: bool = False, iters: int = 10, ins=(), ops: float = 0,
                 peak: float = INT32_OPS_PER_S, quiet: bool = False, library=None,
-                shape: str = "picture", weight: int = 1):
+                shape: str | None = None, weight: int = 1):
         """Kernel against plain version; with `timed`, both timed, and the
         bound counted: the bytes of `ins` and of the result, and `ops`
-        operations at `peak` per second, also per `shape` ("picture": the
-        shape at which the decode and encode paths and the multi-device
-        path's gop-batched chain launch the kernel, a whole picture: for
-        the filter, RMD and SATD kernels a 1080p one, for the inter kernels
-        each call of the RA decode; "shard": a lane's share of a picture or
-        a batch on the multi-device path; SEEDED: the inter kernels'
-        1080p-sized batches, which no path launches), there `weight` times:
-        the launches of one run of the path that this case stands for.
+        operations at `peak` per second, also per `shape` (a size_key: a
+        whole picture of that size and chroma format, at which the decode
+        and encode paths and the multi-device path's gop-batched chain
+        launch the kernel; "shard": a lane's share of a picture or a batch
+        on the multi-device path; ENCODE: the inter encode's preselection
+        calls; SEEDED: the inter kernels' 1080p-sized batches, which no
+        path launches; None: a case no path launches at, kept out of the
+        per-shape sums), there `weight` times: the launches of one run of
+        the path that this case stands for.
         `library`: (fn, agree) of PyTorch calls that compute the same
         function, never used by the port: with `timed`, fn() is held to the
         kernel's result (agree(got, fn()) must be true) and then timed as
@@ -528,9 +592,10 @@ class KernelCheck:
             row["peak"] = peak
             row["timed"] += 1
             row["launches"] += per_call
-            by = row["shapes"].setdefault(shape, [0.0, 0, 0.0, 0])  # ms, bytes, ops, launches
-            for k, v in enumerate((ms, nbytes(ins, got), ops, per_call)):
-                by[k] += weight * v
+            if shape is not None:
+                by = row["shapes"].setdefault(shape, [0.0, 0, 0.0, 0])  # ms, bytes, ops, launches
+                for k, v in enumerate((ms, nbytes(ins, got), ops, per_call)):
+                    by[k] += weight * v
             if paced:
                 row["paced"].append(f"{label}: {paced}")
             self.last = dict(ms=ms, call_ms=call, plain_ms=pms,
@@ -569,7 +634,7 @@ class KernelCheck:
         there."""
         row = self.rows[kernel]
         if shape not in row["shapes"]:
-            raise AssertionError(f"{kernel} has main-path launches at {shape} shape "
+            raise AssertionError(f"{kernel} has main-path launches at {shape} "
                                  "but no timed case there")
         ms, nb, ops, n = row["shapes"][shape]
         bound = max(nb / BYTES_PER_S, ops / row["peak"]) * 1e3
@@ -577,10 +642,10 @@ class KernelCheck:
 
 
 def check_kernels(torch, chk: KernelCheck, y, cb, cr, lut, dbv, dbh, sao, alf,
-                  bd, sx, sy, fl, label: str, timed: bool):
+                  bd, sx, sy, fl, label: str, timed: bool, shape: str | None = None):
     """Every kernel against its plain version on one picture's chain
     inputs, stage by stage (each stage's input is the previous stage's
-    output)."""
+    output); timed at `shape` (the picture's size_key) where `timed`."""
     import numpy as np
 
     from vtm_tpu_torch.ops import alf_kernel as AK
@@ -602,7 +667,7 @@ def check_kernels(torch, chk: KernelCheck, y, cb, cr, lut, dbv, dbh, sao, alf,
                 "vtm_deblock_luma_ver", tag,
                 lambda: DK.deblock_dir_cuda(y, cb, cr, *maps, **lk)[0],
                 lambda: DK.deblock_dir_plain(y, cb, cr, *maps, **lk)[0], timed,
-                ins=(y, maps[0:7]), ops=10 * y.numel())
+                ins=(y, maps[0:7]), ops=10 * y.numel(), shape=shape)
         if hcb or hcr:
             ck = dict(kw, has_l=False, has_cb=hcb, has_cr=hcr)
             # Cb and Cr only: the luma plane passes through unchanged
@@ -610,7 +675,7 @@ def check_kernels(torch, chk: KernelCheck, y, cb, cr, lut, dbv, dbh, sao, alf,
                 "vtm_deblock_chroma_ver", tag,
                 lambda: DK.deblock_dir_cuda(y, cb, cr, *maps, **ck)[1:],
                 lambda: DK.deblock_dir_plain(y, cb, cr, *maps, **ck)[1:], timed,
-                ins=(cb, cr, maps[7:17]), ops=10 * (cb.numel() + cr.numel()))
+                ins=(cb, cr, maps[7:17]), ops=10 * (cb.numel() + cr.numel()), shape=shape)
     planes = [y, cb, cr]
     for comp, on in enumerate((s0, s1, s2)):
         if on:
@@ -619,7 +684,7 @@ def check_kernels(torch, chk: KernelCheck, y, cb, cr, lut, dbv, dbh, sao, alf,
                 "vtm_sao_apply", f"{label} comp {comp}",
                 lambda: SK.sao_apply_cuda(p, *m, bit_depth=bd),
                 lambda: SK.sao_apply_plain(p, *m, bit_depth=bd), timed,
-                ins=(p, m), ops=8 * p.numel())
+                ins=(p, m), ops=8 * p.numel(), shape=shape)
     y, cb, cr = planes
     y_pad = edge_pad(y, AK.PAD, AK.PAD)
     (cperm, lperm, ctu_of, l_orows, l_near, y_i, yd_i, yu_i, yu2_i, df, dl,
@@ -631,7 +696,7 @@ def check_kernels(torch, chk: KernelCheck, y, cb, cr, lut, dbv, dbh, sao, alf,
             "vtm_alf_classify", label,
             lambda: AK.classify_picture_cuda(y_pad, *rows, bit_depth=bd),
             lambda: AK.classify_picture_plain(y_pad, *rows, bit_depth=bd), timed,
-            ins=(y_pad, rows), ops=12 * y.numel())
+            ins=(y_pad, rows), ops=12 * y.numel(), shape=shape)
         gather = (ctu_of.long(), cls.long(), tr.long())
         coef, clip = cperm[gather], lperm[gather]
         chk.compare(
@@ -640,7 +705,8 @@ def check_kernels(torch, chk: KernelCheck, y, cb, cr, lut, dbv, dbh, sao, alf,
                                        taps=AK.LUMA_TAPS, bit_depth=bd),
             lambda: AK.alf_filter_plain(y_pad, coef, clip, l_orows, l_near,
                                         taps=AK.LUMA_TAPS, bit_depth=bd), timed,
-            ins=(y_pad, coef, clip, l_orows, l_near), ops=48 * y.numel())
+            ins=(y_pad, coef, clip, l_orows, l_near), ops=48 * y.numel(),
+            shape=shape)
     for on, c, co, cl in ((a_cb, cb, cb_coef, cb_clip), (a_cr, cr, cr_coef, cr_clip)):
         if on:
             c_pad = edge_pad(c, AK.PAD, AK.PAD)
@@ -650,7 +716,8 @@ def check_kernels(torch, chk: KernelCheck, y, cb, cr, lut, dbv, dbh, sao, alf,
                                            taps=AK.CHROMA_TAPS, bit_depth=bd),
                 lambda: AK.alf_filter_plain(c_pad, co, cl, c_orows, c_near,
                                             taps=AK.CHROMA_TAPS, bit_depth=bd),
-                timed, ins=(c_pad, co, cl, c_orows, c_near), ops=24 * c.numel())
+                timed, ins=(c_pad, co, cl, c_orows, c_near), ops=24 * c.numel(),
+                shape=shape)
     cc_cases = [(c, cc, label) for on, c, cc in ((a_cc1, cb, cc1), (a_cc2, cr, cc2))
                 if on]
     if timed and not cc_cases:
@@ -666,7 +733,8 @@ def check_kernels(torch, chk: KernelCheck, y, cb, cr, lut, dbv, dbh, sao, alf,
             "vtm_ccalf_filter", tag,
             lambda: AK.ccalf_filter_cuda(y_pad, c, cc, cc_orows, cc_skip, **kw),
             lambda: AK.ccalf_filter_plain(y_pad, c, cc, cc_orows, cc_skip, **kw),
-            timed, ins=(y_pad, c, cc, cc_orows, cc_skip), ops=14 * c.numel())
+            timed, ins=(y_pad, c, cc, cc_orows, cc_skip), ops=14 * c.numel(),
+            shape=shape)
     flags = dict(has_l=a_l, has_cb=a_cb, has_cr=a_cr, has_cc1=a_cc1, has_cc2=a_cc2)
     got = AK.alf_all(y_pad, cb, cr, *alf, bit_depth=bd, sx=sx, sy=sy, **flags)
     want = AK.alf_all_plain(y_pad, cb, cr, *alf, bit_depth=bd, sx=sx, sy=sy, **flags)
@@ -698,10 +766,63 @@ def random_case(torch, chk: KernelCheck, dev, seed: int = 7):
                   (True,) * 15, "10-bit 4:4:4 random", timed=False)
 
 
-def capture_inter_inputs(MK, RK, Decoder):
+def chain_flags(pic: dict) -> tuple:
+    """The chain's stage flags of a captured picture (filter_chain.chain_flags)."""
+    from vtm_tpu_torch.ops import filter_chain as FC
+
+    return FC.chain_flags(len(pic["planes"]), pic["lmcs_lut"], pic["dmaps"],
+                          pic["sao_maps"], pic["alf_tables"])
+
+
+def covering_pictures(pics) -> list:
+    """Indices of captured pictures that together run every chain stage
+    that any picture of their stream runs (deblocking, SAO and ALF, each
+    direction and component): greedily, the picture that adds the most
+    stages first."""
+    stages = [{i for i, on in enumerate(chain_flags(p)[1:13]) if on} for p in pics]
+    want, got, chosen = set().union(*stages), set(), []
+    while got != want:
+        i = max(range(len(pics)), key=lambda j: len(stages[j] - got))
+        chosen.append(i)
+        got |= stages[i]
+    return chosen
+
+
+def time_chain_picture(torch, chk: KernelCheck, pic: dict, dev, label: str) -> str:
+    """check_kernels on one captured picture's chain inputs, timed at its
+    size_key, which it returns."""
+    from vtm_tpu_torch.ops import filter_chain as FC
+
+    planes, lmcs_lut, dmaps, sao_maps, alf_tables, bd, sx, sy = (pic[k] for k in (
+        "planes", "lmcs_lut", "dmaps", "sao_maps", "alf_tables", "bd", "sx", "sy"))
+    key, fl = planes_key(planes), chain_flags(pic)
+    print(f"{label} ({key}) chain flags {fl}", flush=True)
+    y, cb, cr = (FC.to_device(p, dev) for p in planes)
+    dbv, dbh, sao, alf = FC.maps_to_torch(dmaps, sao_maps, alf_tables, dev)
+    lut = FC.to_device(lmcs_lut, dev) if lmcs_lut is not None else None
+    check_kernels(torch, chk, y, cb, cr, lut, dbv, dbh, sao, alf, bd, sx, sy,
+                  fl, label, timed=True, shape=key)
+    return key
+
+
+def check_filter_sizes(torch, chk: KernelCheck, dev) -> None:
+    """The filter kernels timed at each picture size below 1080p that the
+    counted paths launch them at: on the pictures of each stream of
+    FILTER_SIZE_STREAMS that together run every stage the stream runs
+    (covering_pictures), each at its size_key."""
+    from vtm_tpu_torch.parallel import multichip as MCH
+
+    for stream in FILTER_SIZE_STREAMS:
+        pics = MCH.capture_decode(stream, "cuda")["pics"]
+        for i in covering_pictures(pics):
+            time_chain_picture(torch, chk, pics[i], dev, f"{stream} chain picture {i}")
+
+
+def capture_inter_inputs(MK, RK, Decoder, stream: str = RA_STREAM):
     """Arguments of every MC, DMVR-search, final-pack and BDOF call of the
-    port's own CUDA decode of the flagship RA stream (device tensors; the
-    wrappers never write their inputs)."""
+    port's own CUDA decode of `stream` (the flagship RA stream by default;
+    device tensors; the wrappers never write their inputs), and the size_key
+    of its pictures."""
     patches = {"mc": (MK, "mc_tiles_pair"), "search": (RK, "dmvr_search"),
                "pack": (RK, "dmvr_final_pack"), "bdof": (RK, "bdof_blend_batch")}
     reals = {k: getattr(m, n) for k, (m, n) in patches.items()}
@@ -717,16 +838,16 @@ def capture_inter_inputs(MK, RK, Decoder):
         setattr(mod, name, recorder(key))
     try:
         dec = Decoder(device="cuda")
-        dec.decode_stream(read_stream(RA_STREAM))
+        pics = dec.decode_stream(read_stream(stream))
     finally:
         for key, (mod, name) in patches.items():
             setattr(mod, name, reals[key])
     if not dec.hash_results or not all(hr.ok for hr in dec.hash_results):
-        raise AssertionError(f"{RA_STREAM}: hash mismatch while recording")
+        raise AssertionError(f"{stream}: hash mismatch while recording")
     empty = [k for k, v in got.items() if not v]
     if empty:
-        raise AssertionError(f"{RA_STREAM}: no {empty} call recorded")
-    return got
+        raise AssertionError(f"{stream}: no {empty} call recorded")
+    return got, planes_key(pics[0].planes)
 
 
 def mc_ops(n: int, taps: int, tile: int) -> int:
@@ -762,13 +883,13 @@ def mc_ref_bytes(planes, jobs, taps: int, tile: int) -> Bytes:
     return Bytes(int(reached.sum()) * planes[0].shape[1] * planes[0].element_size())
 
 
-def check_inter_recorded(chk: KernelCheck, got, MK, RK):
+def check_inter_recorded(chk: KernelCheck, got, MK, RK, label: str, shape: str):
     """The four inter kernels against their plain versions on the recorded
-    inputs of the flagship decode, timed: these are the decode path's own
-    shapes (shape "picture"), one case a launch.  The FIR is timed as the
-    decode launches it, dmvr_final_pack's one launch a call, and checked
-    group by group too."""
-    label = RA_STREAM
+    inputs of the decode of stream `label`, timed: these are the decode
+    path's own calls at pictures of that size (`shape`, the stream's
+    size_key), one case a launch.  The FIR is timed as the decode launches
+    it, dmvr_final_pack's one launch a call, and checked group by group
+    too."""
     for (largs, cargs, bd), _ in got["mc"]:
         for args, lum in ((largs, True), (cargs, False)):
             if args is None:
@@ -778,14 +899,14 @@ def check_inter_recorded(chk: KernelCheck, got, MK, RK):
             planes, jobs, n = args[0], args[1:], args[1].shape[0]
             chk.compare("vtm_mc_tiles", f"{label} {'luma' if lum else 'chroma'}, {n} tiles",
                         lambda: MK.mc_tiles_cuda(*args, **kw),
-                        lambda: MK.mc_tiles_plain(*args, **kw), timed=True,
+                        lambda: MK.mc_tiles_plain(*args, **kw), timed=True, shape=shape,
                         ins=(mc_ref_bytes(planes, jobs, taps, tile), jobs),
                         ops=mc_ops(n, taps, tile))
     for args, kw in got["search"]:
         n = args[0].shape[0]
         chk.compare("vtm_dmvr_search", f"{label}, {n} {kw['dx']}x{kw['dy']} sub-PUs",
                     lambda: RK.dmvr_search_cuda(*args, **kw),
-                    lambda: RK.dmvr_search_plain(*args, **kw), timed=True,
+                    lambda: RK.dmvr_search_plain(*args, **kw), timed=True, shape=shape,
                     ins=args, ops=dmvr_ops(n, kw["dx"], kw["dy"]))
     for (l0, l1, cargs), kw in got["pack"]:
         jobs = pack_jobs(l0, l1, cargs, **kw)
@@ -796,13 +917,13 @@ def check_inter_recorded(chk: KernelCheck, got, MK, RK):
                         lambda: RK.fir_blocks_plain(*a, **fk))
         chk.compare("vtm_fir_blocks", f"{label}, dmvr_final_pack of {len(jobs)} groups",
                     lambda: RK.dmvr_final_pack(l0, l1, cargs, **kw),
-                    lambda: pack_plain(RK, jobs), timed=True,
+                    lambda: pack_plain(RK, jobs), timed=True, shape=shape,
                     ins=(l0, l1, cargs), ops=fir_ops(jobs))
     for args, kw in got["bdof"]:
         n = args[0].shape[0]
         chk.compare("vtm_bdof_blend", f"{label}, {n} {kw['w']}x{kw['h']} sub-blocks",
                     lambda: RK.bdof_blend_batch_cuda(*args, **kw),
-                    lambda: RK.bdof_blend_batch_plain(*args, **kw), timed=True,
+                    lambda: RK.bdof_blend_batch_plain(*args, **kw), timed=True, shape=shape,
                     ins=args, ops=bdof_ops(n, kw["w"], kw["h"]))
 
 
@@ -1064,12 +1185,13 @@ def reduce_agrees(red, lib) -> bool:
 
 
 def check_rmd(torch, chk: KernelCheck, src, bd: int, label: str, timed: bool,
-              ptxas: dict | None = None):
+              ptxas: dict | None = None, shape: str | None = None):
     """The three RMD kernels against their plain versions on every class of
     the source picture `src` (MIP on): the angular and the MIP columns, and
-    the reduction of the plain table.  Timed: a line per class with its
-    positions, operations, bound, times and launch shape (`ptxas`: the
-    registers and spills of phase 2)."""
+    the reduction of the plain table.  Timed (at `shape`, the picture's
+    size_key): a line per class with its positions, operations, bound,
+    times and launch shape (`ptxas`: the registers and spills of phase
+    2)."""
     from vtm_tpu_torch.encoder import rmd as RMD
     from vtm_tpu_torch.ops import rdcost as RC
 
@@ -1079,7 +1201,7 @@ def check_rmd(torch, chk: KernelCheck, src, bd: int, label: str, timed: bool,
         total += P
         out = torch.empty((P, c.ncols), dtype=torch.int32, device=sp.device)
         tag = f"{label} {w}x{h}, {P} positions"
-        kw = dict(timed=timed, iters=2)
+        kw = dict(timed=timed, iters=2, shape=shape)
         ang = chk.compare(
             "vtm_rmd_angular", tag,
             lambda: RMD.angular_costs_cuda(sp, xs, ys, c, out)[:, :RMD.N_ANG],
@@ -1468,7 +1590,8 @@ def versus_refine(torch, KN, other: str) -> None:
                f"{'1 launch' if grouped else '6 launches'})", lambda: other_fir(jobs, theirs),
                lambda: RK.dmvr_final_pack(l0, l1, cargs, **kw), theirs, (l0, l1, cargs), sums)
     versus_sums(sums, "luma blocks + dmvr_final_pack")
-    versus_search_blend(torch, KN, other, lib, capture_inter_inputs(MK, RK, Decoder), rng)
+    versus_search_blend(torch, KN, other, lib, capture_inter_inputs(MK, RK, Decoder)[0],
+                        rng)
 
 
 def versus_search_blend(torch, KN, other: str, lib, got: dict, rng) -> None:
@@ -2007,6 +2130,41 @@ def check_shard_entries(torch, chk: KernelCheck, pic: dict, dev, lanes: int = 8)
                 ins=(resid, pred, orig), ops=6 * resid.numel())
 
 
+def check_halo_exchange(torch, chk: KernelCheck, pic: dict, dev, lanes: int = 8,
+                        halo: int = 8) -> None:
+    """The port's halo_exchange (parallel/mesh.py) on the `lanes` width
+    shards of a captured picture's luma, as phase 6 splits it, each
+    transposed so that its rows are the picture's columns: every lane's
+    shard extended by `halo` columns of each neighbour (the deblocking's
+    halo; the ring's wrap-around at the ends).  Held to the shards
+    themselves, then timed (device ms; one torch.cat a lane) beside its
+    bytes bound, the halo rows read once and written once, and beside the
+    shard floors of check_shard_entries."""
+    import numpy as np
+
+    from vtm_tpu_torch.parallel import mesh as MS
+
+    x = torch.from_numpy(np.asarray(pic["planes"][0], dtype=np.int32)).to(dev)
+    shards = [s.T.contiguous() for s in x.chunk(lanes, dim=1)]
+    out = MS.halo_exchange(shards, halo)
+    for i, (s, e) in enumerate(zip(shards, out)):
+        want = torch.cat([shards[i - 1][-halo:], s, shards[(i + 1) % lanes][:halo]])
+        if not torch.equal(e, want):
+            raise AssertionError(f"halo_exchange: lane {i} != its neighbours' rows")
+    ms, paced = device_ms(torch, lambda: MS.halo_exchange(shards, halo))
+    if paced:
+        raise AssertionError(f"halo_exchange {paced}")
+    nb = 2 * lanes * 2 * halo * shards[0].shape[1] * shards[0].element_size()
+    bound = nb / BYTES_PER_S * 1e3
+    floors = "; ".join(f"{k} {v:.6f} ms" for k, v in chk.floors.items()
+                       if k.startswith(("torch.cuda._sleep", "torch copy_")))
+    print(f"halo_exchange [{lanes} lanes of {tuple(x.shape)} luma, shards "
+          f"{tuple(shards[0].shape)} transposed, {halo} halo rows a side]: equal to the "
+          f"neighbours' rows; {ms:.6f} ms device ({lanes} torch.cat launches), {nb} halo "
+          f"bytes read and written, bound {bound:.6f} ms (bytes), {100 * bound / ms:.2f} % "
+          f"of bound; shard floors: {floors}", flush=True)
+
+
 def mesh_inputs(torch, dev) -> dict:
     """The inputs of phase 6's sharded MC and reconstruction stages (their
     shard-shape kernel cases in phase 3 take them too): the decodes that
@@ -2126,8 +2284,8 @@ def mesh_path(torch, KN, hd_cap: dict, mesh_in: dict) -> dict:
     """The multi-device main path on lanes sharing the card; returns its
     launch counts, those of one run of each stage, by the shape its lanes
     work on: {"shard": the width-sharded luma chain, the sharded MC and the
-    sharded reconstruction; "picture": the gop-batched full chain, whose
-    lanes take whole pictures}.  Its inputs (`mesh_in`: the decodes that
+    sharded reconstruction; a size_key a stream: the gop-batched full chain
+    of its pictures, whose lanes take whole pictures}.  Its inputs (`mesh_in`: the decodes that
     capture the small208 and RA streams, the seeded MC batch, the
     reconstruction step's blocks, and the plain results the MC and recon
     stages are held to) were made before; the counts are zeroed here, and
@@ -2152,21 +2310,22 @@ def mesh_path(torch, KN, hd_cap: dict, mesh_in: dict) -> dict:
 
     # ---- the path: sharded calls and their one-lane runs alone ----
     KN.reset_launch_counts()
-    counts = {s: dict.fromkeys(KN.KERNELS, 0) for s in ("shard", "picture")}
+    counts = {"shard": dict.fromkeys(KN.KERNELS, 0)}
 
     def count(launches: dict, at: str = "shard") -> dict:
+        row = counts.setdefault(at, dict.fromkeys(KN.KERNELS, 0))
         for k, v in launches.items():
-            counts[at][k] += v
+            row[k] += v
         return launches
 
     for stream, cap, cases in ((HD_STREAM, hd_cap, ((1, 1), (4, 2), (8, 8))),
                                (MCH.STREAM, small_cap, ((1, None), (2, None), (8, None)))):
-        one = None
+        one, key = None, planes_key(cap["pics"][0]["planes"])
         for n, tile in cases:
             rep = MCH.dryrun_multichip(n, device="cuda", stream=stream, tile=tile,
                                        cap=cap, repeats=REPEATS)
             for stage, launches in rep["stage_launches"].items():
-                count(launches, "picture" if stage == "full_chain_s" else "shard")
+                count(launches, key if stage == "full_chain_s" else "shard")
             one = one or rep
             show_dryrun(rep, one)
     # the MC job axis over 4 lanes: a 1080p-sized seeded batch, a slice batch
@@ -2200,7 +2359,7 @@ def mesh_path(torch, KN, hd_cap: dict, mesh_in: dict) -> dict:
               f"{statistics.median(secs) / statistics.median(one):.4f}x one lane; "
               f"launches of one run {count(runs)}", flush=True)
     total = KN.launch_counts()
-    if any(total[k] != REPEATS * (counts["shard"][k] + counts["picture"][k]) for k in total):
+    if any(total[k] != REPEATS * sum(c[k] for c in counts.values()) for k in total):
         raise AssertionError(f"the phase launched {total}, not {REPEATS} x one run "
                              f"of each stage {counts}")
     print(f"launches, all {REPEATS} runs of each stage: {total}", flush=True)
@@ -2210,7 +2369,8 @@ def mesh_path(torch, KN, hd_cap: dict, mesh_in: dict) -> dict:
 def encode_small(torch, KN, Decoder, IntraEncoder, name: str, kw: dict) -> dict:
     """One 208x120 picture on the card and on the CPU: identical bytes, and
     the card's stream decodes hash-exact (on the card) to the encoder's
-    reconstruction.  Returns the launches of the card's encode alone."""
+    reconstruction.  Returns the launches of the card's encode alone and
+    those of the decode of its stream."""
     from vtm_tpu_torch import testing as T
     from vtm_tpu_torch.encoder.enc_lib import EncoderConfig
 
@@ -2227,12 +2387,12 @@ def encode_small(torch, KN, Decoder, IntraEncoder, name: str, kw: dict) -> dict:
     if bits != cpu_bits:
         raise AssertionError(f"encode {name}: cuda and cpu streams differ "
                              f"({len(bits)} vs {len(cpu_bits)} bytes)")
-    dec_l = {k: v for k, v in check_own_decode(KN, Decoder, name, bits, enc).items() if v}
+    dec = check_own_decode(KN, Decoder, name, bits, enc)
     enc_l = {k: after[k] - before[k] for k in after if after[k] > before[k]}
     print(f"encode {name} {kw}: {len(bits)} bytes, identical on cuda and cpu, "
           f"decoded hash-exact; {dt:.4f} s on cuda; launches: encode {enc_l}, "
-          f"decode of its stream {dec_l}", flush=True)
-    return {k: after[k] - before[k] for k in after}
+          f"decode of its stream { {k: v for k, v in dec.items() if v} }", flush=True)
+    return {k: after[k] - before[k] for k in after}, dec
 
 
 def check_own_decode(KN, Decoder, name: str, bits: bytes, enc, n_frames: int = 1) -> dict:
@@ -2340,7 +2500,8 @@ def encode_hd(torch, KN, Decoder, IntraEncoder):
     configuration on the card; decoded hash-exact by the port.  Prints
     s/picture and its split (encode_stages): the FrameRMD wait, the
     deblocking stage, the rest (host RD search, CABAC); and FrameRMD's span
-    on the device timeline.  Returns the launches of the encode alone."""
+    on the device timeline.  Returns the launches of the encode alone and
+    those of the decode of its stream."""
     from vtm_tpu_torch import testing as T
     from vtm_tpu_torch.encoder.enc_lib import EncoderConfig
 
@@ -2354,7 +2515,7 @@ def encode_hd(torch, KN, Decoder, IntraEncoder):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     after = KN.launch_counts()
-    check_own_decode(KN, Decoder, "hd_source 1920x1080", bits, enc)
+    dec = check_own_decode(KN, Decoder, "hd_source 1920x1080", bits, enc)
     rest = dt - spans["rmd_wait"] - spans["deblock"]
     print(f"encode 1920x1080 (bq416 mirror-tiled) QP 37: {len(bits)} bytes, "
           f"decoded hash-exact; {dt:.4f} s/picture = FrameRMD wait "
@@ -2363,7 +2524,7 @@ def encode_hd(torch, KN, Decoder, IntraEncoder):
           f"{spans['deblock']:.4f} s + host RD and CABAC {rest:.4f} s; FrameRMD "
           f"span on the device timeline {spans['rmd_ms']:.4f} ms (CUDA events: uploads, "
           f"kernels, host gaps)", flush=True)
-    return {k: after[k] - before[k] for k in after}
+    return {k: after[k] - before[k] for k in after}, dec
 
 
 @contextlib.contextmanager
@@ -2486,6 +2647,101 @@ def encode_ra_d(torch, KN, Decoder) -> dict:
     return {k: after[k] - before[k] for k in after}, dec_l
 
 
+def encode_gop(torch, KN, Decoder, case) -> tuple:
+    """A GOP_CASES encode through vtm_tpu_torch.parallel.gop.encode_parallel
+    on the card, with 2 workers and then with 1, each on the host's clock
+    ending in torch.cuda.synchronize(): the two streams identical and
+    decoded hash-exact on the card (every POC).  The workers' launches come
+    back with their streams and are added to this process's counts; each
+    run must launch every kernel of the case's list, and a deblocking, SAO
+    or ALF kernel that the encodes leave out must be one the decode of the
+    stream leaves out too.  Prints s/picture of both runs and their ratio
+    beside the host's cores and torch's threads, and each run's host CPU
+    seconds (this process and its finished children, the workers) over its
+    wall seconds: the cores it kept busy.  Returns the launches of the two
+    encodes, those of the decode, and the pictures' size_key."""
+    import resource
+
+    from vtm_tpu_torch import testing as T
+    from vtm_tpu_torch.parallel.gop import encode_parallel
+
+    label, mode, src, cfgk, n, seg, enc_kw, must = case
+    w, h = cfgk["width"], cfgk["height"]
+    frames = [T.hd_source(i) if src == "hd_source" else T.read_source(src, w, h, i)
+              for i in range(n)]
+    def cpu_s():
+        kids = resource.getrusage(resource.RUSAGE_CHILDREN)
+        return time.process_time() + kids.ru_utime + kids.ru_stime
+
+    enc, secs, cores, streams, per_run = dict.fromkeys(KN.KERNELS, 0), {}, {}, [], {}
+    for workers in (2, 1):
+        before = KN.launch_counts()
+        t0, c0 = time.perf_counter(), cpu_s()
+        streams.append(encode_parallel(frames, dict(cfgk), mode=mode, segment_len=seg,
+                                       workers=workers, enc_kwargs=enc_kw, device="cuda"))
+        torch.cuda.synchronize()
+        secs[workers] = time.perf_counter() - t0
+        cores[workers] = (cpu_s() - c0) / secs[workers]
+        after = KN.launch_counts()
+        run = {k: after[k] - before[k] for k in after}
+        idle = [k for k in must if run[k] == 0]
+        if idle:
+            raise AssertionError(f"GOP-parallel encode {label} with {workers} workers did "
+                                 f"not launch {idle}")
+        for k, v in run.items():
+            enc[k] += v
+        per_run[workers] = {k: v for k, v in run.items() if v}
+    what = f"GOP-parallel encode {label} {mode} {src} {n} frames, segments of {seg}"
+    if streams[0] != streams[1]:
+        raise AssertionError(f"{what}: 2 workers and 1 give different streams "
+                             f"({len(streams[0])} vs {len(streams[1])} bytes)")
+    before = KN.launch_counts()
+    dec = Decoder(device="cuda")
+    pics = dec.decode_stream(streams[0])
+    after = KN.launch_counts()
+    if sorted(p.poc for p in pics) != list(range(n)) or len(dec.hash_results) != n \
+            or not all(hr.ok for hr in dec.hash_results):
+        raise AssertionError(f"{what}: the stream does not decode hash-exact to POCs 0-{n - 1}")
+    dec_l = {k: after[k] - before[k] for k in after}
+    left_out = [k for k in ENC_KERNELS if enc[k] == 0 and dec_l[k]]
+    if left_out:
+        raise AssertionError(f"{what}: the encodes did not launch {left_out}, which the "
+                             "decode of the stream launches")
+    print(f"{what} {cfgk} {enc_kw or {}}: {len(streams[0])} bytes, identical with 2 workers "
+          f"and 1, decoded hash-exact on cuda; {secs[2] / n:.4f} s/picture with 2 workers, "
+          f"{secs[1] / n:.4f} s/picture with 1 (ratio {secs[1] / secs[2]:.4f}x); host "
+          f"os.cpu_count() {os.cpu_count()}, torch.get_num_threads() "
+          f"{torch.get_num_threads()}, host CPU s / wall s {cores[2]:.4f} with 2 workers, "
+          f"{cores[1]:.4f} with 1; launches with 2 workers (theirs, returned) "
+          f"{per_run[2]}, with 1 (in-process) {per_run[1]}, decode of the stream "
+          f"{ {k: v for k, v in dec_l.items() if v} }", flush=True)
+    return enc, dec_l, size_key(w, h, "420")
+
+
+def attribute(by_shape: dict, shape: str, launches: dict) -> None:
+    """Add `launches` ({kernel: n}) to by_shape[shape]."""
+    row = by_shape.setdefault(shape, {})
+    for k, v in launches.items():
+        row[k] = row.get(k, 0) + v
+
+
+def attribute_encode(by_shape: dict, key: str, enc: dict, dec: dict) -> None:
+    """An inter encode's launches (`enc`) and its stream's decode's (`dec`):
+    the encode's MC at ENCODE, the rest at the pictures' size_key."""
+    attribute(by_shape, ENCODE, {"vtm_mc_tiles": enc["vtm_mc_tiles"]})
+    attribute(by_shape, key, {k: v for k, v in enc.items() if k != "vtm_mc_tiles"})
+    attribute(by_shape, key, dec)
+
+
+def check_attributed(by_shape: dict, total: dict, what: str) -> None:
+    """Raise unless the launches attributed to shapes add up to the phase's
+    counts: no launch of the phase is left without a shape."""
+    summed = {k: sum(r.get(k, 0) for r in by_shape.values()) for k in total}
+    if summed != total:
+        raise AssertionError(f"{what}: launches by shape add up to {summed}, the phase "
+                             f"launched {total}")
+
+
 def redesign_order(chk: KernelCheck, launches: dict) -> list:
     """[(saving ms, kernel, parts)], largest first: per kernel, the sum over
     shapes of its launches there (launches: {kernel: {shape: n}}) x (device
@@ -2497,7 +2753,7 @@ def redesign_order(chk: KernelCheck, launches: dict) -> list:
             if n:
                 per, bound = chk.per_launch(name, shape)
                 gap += n * (per - bound)
-                parts.append(f"{n} x ({per:.6f} - {bound:.6f}) ms at {shape} shape")
+                parts.append(f"{n} x ({per:.6f} - {bound:.6f}) ms at {shape}")
         order.append((gap, name, parts))
     return sorted(order, reverse=True)
 
@@ -2571,9 +2827,10 @@ def decode_golden(torch, KN, Decoder) -> None:
           flush=True)
 
 
-def decode(torch, Decoder, name: str, chain_events: list) -> int:
+def decode(torch, Decoder, name: str, chain_events: list) -> tuple[int, str]:
     """Decode one stream on the card, check every picture hash, and print
-    seconds per picture and the chain's summed device time."""
+    seconds per picture and the chain's summed device time.  Returns the
+    number of pictures and their size_key."""
     chain_events.clear()
     data = read_stream(name)
     t0 = time.perf_counter()
@@ -2593,7 +2850,7 @@ def decode(torch, Decoder, name: str, chain_events: list) -> int:
           f"{dt / len(pics):.4f} s/picture; filter chain {sum(chain_ms):.4f} ms "
           f"device time in all, per picture {[round(m, 4) for m in chain_ms]} "
           "(CUDA events, uploads included)", flush=True)
-    return len(pics)
+    return len(pics), planes_key(pics[0].planes)
 
 
 def main() -> int:
@@ -2642,29 +2899,28 @@ def main() -> int:
     # multi-device path of phase 6
     hd_cap = MCH.capture_decode(HD_STREAM, "cuda")
     pic0 = hd_cap["pics"][0]
-    planes, lmcs_lut, dmaps, sao_maps, alf_tables, bd, sx, sy = (pic0[k] for k in (
-        "planes", "lmcs_lut", "dmaps", "sao_maps", "alf_tables", "bd", "sx", "sy"))
     dev = torch.device("cuda")
-    fl = FC.chain_flags(len(planes), lmcs_lut, dmaps, sao_maps, alf_tables)
-    print(f"POC 0 chain flags {fl}", flush=True)
-    y, cb, cr = (FC.to_device(p, dev) for p in planes)
-    dbv, dbh, sao, alf = FC.maps_to_torch(dmaps, sao_maps, alf_tables, dev)
-    lut = FC.to_device(lmcs_lut, dev) if lmcs_lut is not None else None
-    check_kernels(torch, chk, y, cb, cr, lut, dbv, dbh, sao, alf, bd, sx, sy,
-                  fl, "1080p POC 0", timed=True)
+    hd_key = time_chain_picture(torch, chk, pic0, dev, "1080p POC 0")
+    check_filter_sizes(torch, chk, dev)
     random_case(torch, chk, dev)
-    check_inter_recorded(chk, capture_inter_inputs(MK, RK, Decoder), MK, RK)
+    for stream in (RA_STREAM, INTER_SMALL_STREAM):
+        got, key = capture_inter_inputs(MK, RK, Decoder, stream)
+        check_inter_recorded(chk, got, MK, RK, stream, key)
     check_inter_1080p(chk, MK, RK, dev)
     check_encode_recorded(chk, capture_encode_mc(MK), MK)
     check_satd(chk, dev)
     check_rmd(torch, chk, T.hd_source()[0], 8, "1080p bq416 mirror-tiled", timed=True,
-              ptxas=ptxas)
+              ptxas=ptxas, shape=hd_key)
+    for src, w, h in RMD_SIZE_SOURCES:
+        check_rmd(torch, chk, T.read_source(src, w, h)[0], 8, f"{src} frame 0", timed=True,
+                  ptxas=ptxas, shape=size_key(w, h, "420"))
     check_rmd(torch, chk, T.rmd_source(np.random.default_rng(13), 192, 256, 10),
               10, "10-bit 256x192 seeded", timed=False)
     check_rmd(torch, chk, T.rmd_source(np.random.default_rng(19), 1080, 1920, 10),
               10, "10-bit 1920x1080 seeded", timed=False)
     check_transforms(torch, chk, dev)
     check_shard_entries(torch, chk, pic0, dev)
+    check_halo_exchange(torch, chk, pic0, dev)
     mesh_in = mesh_inputs(torch, dev)
     check_mesh_batches(torch, chk, mesh_in, dev)
 
@@ -2687,15 +2943,20 @@ def main() -> int:
         per_stream = {}
         for name in (HD_STREAM,) + SMALL_STREAMS + INTER_STREAMS:
             before = KN.launch_counts()
-            n_pics = decode(torch, Decoder, name, chain_events)
+            n_pics, key = decode(torch, Decoder, name, chain_events)
             after = KN.launch_counts()
-            per_stream[name] = ({k: after[k] - before[k] for k in after}, n_pics)
+            per_stream[name] = ({k: after[k] - before[k] for k in after}, n_pics, key)
     finally:
         FC.run_filter_chain = real_chain
     dec_counts = KN.launch_counts()
-    hd, n_hd = per_stream[HD_STREAM]
+    # each stream's launches at its pictures' size
+    dec_by = {}
+    for launched, _, key in per_stream.values():
+        attribute(dec_by, key, launched)
+    check_attributed(dec_by, dec_counts, "the decode main path")
+    hd, n_hd, _ = per_stream[HD_STREAM]
     print(f"launches, {HD_STREAM}: {hd}", flush=True)
-    ra, _ = per_stream[RA_STREAM]
+    ra, _, _ = per_stream[RA_STREAM]
     print(f"launches, {RA_STREAM}: {ra}", flush=True)
     print(f"launches, decode main path: {dec_counts}", flush=True)
     if hd["vtm_deblock_luma_ver"] < 2 * n_hd:
@@ -2708,17 +2969,33 @@ def main() -> int:
     decode_golden(torch, KN, Decoder)
 
     # 5. the encode main path, with the launch counts of this run only; the
-    # CPU twin of the inter encode (a) runs beside it
+    # CPU twin of the inter encode (a) runs beside it; the GOP-parallel
+    # encodes after it, so that it takes no cores from their workers
     with cpu_twin(RA_ENC_SMALL) as twin:
         KN.reset_launch_counts()
         encodes = [encode_small(torch, KN, Decoder, IntraEncoder, name, kw)
                    for name, kw in ENC_CASES]
-        encodes.append(encode_hd(torch, KN, Decoder, IntraEncoder))
+        hd_enc = encode_hd(torch, KN, Decoder, IntraEncoder)
         inter = {"(a)": encode_ra_small(torch, KN, Decoder, twin),
                  "(b)": encode_ra_d(torch, KN, Decoder)}
+    gop = [encode_gop(torch, KN, Decoder, case) for case in GOP_CASES]
     enc_counts = KN.launch_counts()
-    enc_only = {k: sum(c[k] for c in encodes + [e for e, _ in inter.values()])
-                for k in enc_counts}
+    # each encode's launches and its stream's decode's at the pictures'
+    # size, the inter encodes' own MC at ENCODE
+    enc_by = {}
+    for enc, dec in encodes:
+        attribute(enc_by, size_key(208, 120, "420"), enc)
+        attribute(enc_by, size_key(208, 120, "420"), dec)
+    attribute(enc_by, size_key(1920, 1080, "420"), hd_enc[0])
+    attribute(enc_by, size_key(1920, 1080, "420"), hd_enc[1])
+    for case, (enc, dec) in zip((RA_ENC_SMALL, RA_ENC_D), inter.values()):
+        attribute_encode(enc_by, size_key(case[1], case[2], "420"), enc, dec)
+    for enc, dec, key in gop:
+        attribute_encode(enc_by, key, enc, dec)
+    check_attributed(enc_by, enc_counts, "the encode main path")
+    alone = ([e for e, _ in encodes + [hd_enc] + list(inter.values())]
+             + [e for e, _, _ in gop])
+    enc_only = {k: sum(e[k] for e in alone) for k in enc_counts}
     print(f"launches, the encodes alone: {enc_only}", flush=True)
     print(f"launches, encode main path (the encodes and the decodes of their "
           f"streams): {enc_counts}", flush=True)
@@ -2745,18 +3022,15 @@ def main() -> int:
     idle = [k for k in INTER_ENC_KERNELS if sum(c[k] for c, _ in inter.values()) == 0]
     if idle:
         raise AssertionError(f"the inter encodes did not launch {idle}")
-    # the inter encodes' own MC launches run at the encode's shape
-    enc_mc = {k: sum(c[k] for c, _ in inter.values()) if k == "vtm_mc_tiles" else 0
-              for k in enc_counts}
     for k, why in NOT_IN_ENCODER.items():
         print(f"{k}: not launched by the encoder: {why}", flush=True)
 
     # 6. the multi-device main path, with the launch counts of this run only
     mesh_by = mesh_path(torch, KN, hd_cap, mesh_in)
-    mesh_counts = {k: mesh_by["shard"][k] + mesh_by["picture"][k] for k in mesh_by["shard"]}
+    mesh_counts = {k: sum(c[k] for c in mesh_by.values()) for k in KN.KERNELS}
     print(f"launches, multi-device main path (one run of each stage): {mesh_counts}; "
           f"on shards {mesh_by['shard']}; on whole pictures (the gop-batched chain) "
-          f"{mesh_by['picture']}", flush=True)
+          f"{ {s: c for s, c in mesh_by.items() if s != 'shard'} }", flush=True)
     idle = [k for k in MESH_KERNELS if mesh_counts[k] == 0]
     if idle:
         raise AssertionError(f"the multi-device path did not launch {idle}")
@@ -2790,10 +3064,16 @@ def main() -> int:
                             bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=row["library_ms"]))
     # what a redesign of each kernel could save on the main paths at most,
-    # each launch weighed at the shape it runs at
-    launches = {k: {"picture": dec_counts[k] + enc_counts[k] - enc_mc[k]
-                    + mesh_by["picture"][k], "shard": mesh_by["shard"][k],
-                    ENCODE: enc_mc[k]} for k in dec_counts}
+    # each launch weighed at the shape it runs at: the size of its picture,
+    # a lane's shard, or the inter encode's preselection call
+    by_shape = {}
+    for by in (dec_by, enc_by, mesh_by):
+        for shape, launched in by.items():
+            attribute(by_shape, shape, launched)
+    for shape, launched in sorted(by_shape.items()):
+        print(f"launches at {shape}: { {k: v for k, v in launched.items() if v} }",
+              flush=True)
+    launches = {k: {s: c.get(k, 0) for s, c in by_shape.items()} for k in KN.KERNELS}
     order = redesign_order(chk, launches)
     print("redesign order, main-path launches x (device ms - bound ms) per launch at the "
           "shape each runs at: " + ", ".join(f"{name} {gap:.6f} ms ({' + '.join(parts)})"

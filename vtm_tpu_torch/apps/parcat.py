@@ -107,6 +107,11 @@ def parcat(paths: list[str], overlap: bool = False) -> bytes:
                     if is_slice:
                         drop_sei_of_idr = False
                 if (overlap and not idr_found) or (not overlap and not idr_found and not is_slice and t != nalio.NAL_PH):
+                    # the APS go with the parameter sets, as in the
+                    # reference's parcat: a later segment's ALF APS is
+                    # dropped, and its slices then use the first segment's
+                    # filters (kept for byte parity; encode ALF-free
+                    # segments)
                     if t in (
                         nalio.NAL_DCI, nalio.NAL_VPS, nalio.NAL_SPS, nalio.NAL_PPS,
                         nalio.NAL_PREFIX_APS, nalio.NAL_SUFFIX_APS,

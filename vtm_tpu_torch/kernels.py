@@ -164,6 +164,16 @@ def reset_launch_counts() -> None:
         _launches[k] = 0
 
 
+def add_launch_counts(launches: dict[str, int]) -> None:
+    """Add launches made on this process's behalf elsewhere (another
+    process's launch_counts()) to this process's counts."""
+    unknown = set(launches) - set(_launches)
+    if unknown:
+        raise KeyError(f"unknown kernels {sorted(unknown)}")
+    for k, v in launches.items():
+        _launches[k] += v
+
+
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device,
           shape: tuple | None = None) -> None:
     """Raise unless `t` is what a kernel takes."""
