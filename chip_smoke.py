@@ -15,8 +15,8 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    deblocking tile kernels' launch shape (resident blocks an SM); an RMD
    kernel that spills, or an MC, ALF-filter, ALF-classifier, luma
    deblocking tile, FIR, DMVR-search, BDOF, RMD-reduction, register-tiled
-   inverse transform, SATD or SAO kernel with a stack frame or spills,
-   fails;
+   inverse transform, SATD, SAO or halo kernel with a stack frame or
+   spills, fails;
 3. each kernel against its plain torch version, exactly:
    - the filter kernels on the real chain inputs of POC 0 of
      testdata/ai_full_hd1080_qp37.bit (1920x1080 4:2:0 8-bit, LMCS +
@@ -65,11 +65,17 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
      plane, and of a one-tile launch of the delta and of the classifier (a
      launch's floors); the classifier and the luma ALF filter on one
      248-column shard as the sharded chain pads it; the extended-plane SAO
-     on the eight VER shards, and the device time of the torch cat and
-     edge_pad that build a shard's extended plane; the recon/SSE epilogue
-     on two 1080p planes of 32x32 blocks; the port's halo_exchange on the
-     eight 240-column luma shards, transposed, 8 halo rows a side (device
-     ms beside its bytes bound and the shard floors);
+     on the eight VER shards; the recon/SSE epilogue on two 1080p planes
+     of 32x32 blocks; the two halo kernels (csrc/halo.cu) on the eight
+     240-column VER shards, one launch for all: vtm_halo_gather with 8
+     halo columns (deblocking), 1 with an edge row (SAO) and 4 with four
+     (ALF), vtm_halo_add_deltas returning the VER deltas, and the gather as
+     the ring of mesh.halo_exchange on the shards transposed, 8 rows a side
+     (device ms beside its bytes bound: each shard read once, each
+     extended shard written once, a halo strip being part of a
+     neighbour's shard; the delta return reads its neighbours' edge
+     deltas besides; the library column the torch.cat / edge_pad / slice
+     calls they replace);
    - the multi-device path's MC and reconstruction kernels at the shapes
      its lanes launch them (phase 6's own inputs): vtm_mc_tiles on one
      lane's share of each sharded MC batch (the 1080p-sized seeded batch
@@ -128,7 +134,17 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    times, its host seconds (median, min, max) beside its one-lane run's;
    the decodes that capture its inputs run before its counts are zeroed,
    and its launches are those of one run of each stage (every run must
-   launch what the first did);
+   launch what the first did); then the live decode mesh:
+   Decoder(device="cuda") under decode_mesh_ctx(codec_mesh(4, gop=2))
+   (2 x 2 lanes sharing the card; every MC batch split over the four
+   lanes, the luma chain width-sharded over 'tile', the chroma on the home
+   lane) on ld_min_tiny64_qp32, ai_min_tiny64_qp27, ai_full_tiny64_qp32,
+   ra_full_bq416_qp37 (208-column shards), ai_full_hd1080_qp37 (960) and
+   ai_ccalf_cc208_qp32 (104, CC-ALF), each decoded once: every picture hash-exact and equal to phase 4's
+   mesh-off decode, s/picture beside mesh-off, each picture's route, and
+   the MC, luma filter and halo kernels launched; every sharded call it
+   made (recorded) is then held to its plain version and timed at its own
+   shape;
    launch counts, zeroed before each main path and read after it, prove
    that the three paths ran through every kernel (two excepted, checked and
    timed in phase 3 only: the standalone SATD entry point, whose code runs
@@ -151,12 +167,13 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    "encode" for the inter encodes' own MC launches, at phase 3's recorded
    preselection calls; "shard" for the sharded luma chain, MC and
    reconstruction, each shard case weighed as often as one run launches
-   it; a kernel with launches at a shape where none of its cases was
-   timed fails),
+   it; "live shard WxH" and "live MC lane share <stream>" for the live
+   mesh's sharded launches, at their recorded calls; a kernel with
+   launches at a shape where none of its cases was timed fails),
    the extended-plane SAO's shard launches beside an empty kernel, a copy
-   of a shard's plane and the two torch calls that extend a shard (what an
-   entry reading the shard and its halo in place would save), one JSON
-   line of per-kernel results, then the device line, last.
+   of a shard's plane and the vtm_halo_gather launch that extends every
+   shard ahead of them, one JSON line of per-kernel results, then the
+   device line, last.
 
     python3 chip_smoke.py --versus DIR
 
@@ -253,6 +270,10 @@ KERNEL_INFO = {
                              "vtm_tpu/ops/transform.py:152"),
     "vtm_recon_sse": ("vtm_tpu_torch/csrc/transform.cu",
                       "vtm_tpu/parallel/mesh.py:58"),
+    "vtm_halo_gather": ("vtm_tpu_torch/csrc/halo.cu",
+                        "vtm_tpu/parallel/mesh.py:35"),
+    "vtm_halo_add_deltas": ("vtm_tpu_torch/csrc/halo.cu",
+                            "vtm_tpu/parallel/pic_shard.py:89"),
 }
 # the shape of the inter kernels' numpy-seeded 1080p-sized batches: timed for
 # their rows; no main path launches them at that shape (the decode path's
@@ -266,7 +287,20 @@ INT8_TC_OPS_PER_S = 1979e12
 MESH_KERNELS = ("vtm_inv_transform", "vtm_recon_sse",
                 "vtm_deblock_luma_ver_delta", "vtm_sao_apply_ext",
                 "vtm_alf_classify", "vtm_alf_filter", "vtm_mc_tiles",
-                "vtm_deblock_luma_ver", "vtm_deblock_chroma_ver", "vtm_sao_apply")
+                "vtm_deblock_luma_ver", "vtm_deblock_chroma_ver", "vtm_sao_apply",
+                "vtm_halo_gather", "vtm_halo_add_deltas")
+# the streams of phase 6's live decode mesh (Decoder under decode_mesh_ctx on
+# 2 x 2 lanes sharing the card): the reference's three 64x64 ones, the
+# flagship RA stream (208-column shards), the 1080p stream at full width
+# (960-column shards, LMCS; its chain runs no CC-ALF) and a 208x120 stream
+# whose chain runs CC-ALF (104-column shards; the luma after SAO goes back to
+# the home lane for it)
+LIVE_STREAMS = ("ld_min_tiny64_qp32", "ai_min_tiny64_qp27", "ai_full_tiny64_qp32",
+                RA_STREAM, HD_STREAM, "ai_ccalf_cc208_qp32")
+# kernels the live decode mesh must launch
+LIVE_KERNELS = ("vtm_mc_tiles", "vtm_deblock_luma_ver_delta", "vtm_sao_apply_ext",
+                "vtm_alf_classify", "vtm_alf_filter", "vtm_halo_gather",
+                "vtm_halo_add_deltas")
 # kernel -> ptxas counts that must be 0 (phase 2): the redesigned kernels keep
 # every value in registers or shared memory
 NO_LOCAL_MEMORY = {
@@ -276,7 +310,8 @@ NO_LOCAL_MEMORY = {
                      "rmd_reduce_kernel", "alf_classify_kernel", "luma_tile_kernel",
                      "inv_transform_tile_kernel", "dmvr_search_kernel",
                      "bdof_blend_kernel", "satd_batch_kernel", "sao_kernel",
-                     "inv_transform_s8_kernel"),
+                     "inv_transform_s8_kernel", "halo_gather_kernel",
+                     "halo_add_deltas_kernel"),
                     ("spill_stores", "spill_loads", "stack_frame"))}
 # runs of each sharded stage whose host seconds are compared (median)
 REPEATS = 7
@@ -1868,11 +1903,9 @@ def sao_ext_shards(torch, pic: dict, dev, lanes: int = 8, maps=None):
     (pic_shard.make_sharded_luma_filters), on the picture's luma as the
     chain's input holds it, with its luma SAO maps or `maps` (type_map,
     ctu_map, offsets, valid) in their place; also the unextended shards."""
-    from vtm_tpu_torch.ops import edge_pad
-    from vtm_tpu_torch.parallel import multichip as MCH
     from vtm_tpu_torch.parallel import pic_shard as PS
 
-    x, _, _, sao, _, _ = MCH.luma_chain_args(pic)
+    x, _, _, sao, _, _ = PS.luma_chain_args(pic)
     sao = sao if maps is None else maps
     bd = int(pic["bd"])
     devs = [dev] * lanes
@@ -1880,8 +1913,8 @@ def sao_ext_shards(torch, pic: dict, dev, lanes: int = 8, maps=None):
     parts = [PS._split_cols(PS._t(m), lanes, devs) for m in (sao[0], sao[1], sao[3])]
     offs = PS._t(sao[2]).to(dev)
     return [(f"shard {i} of {lanes}",
-             (edge_pad(e, 1, 0), parts[0][i], parts[1][i], offs, parts[2][i], bd))
-            for i, e in enumerate(PS._halo_cols(xs, 1))], xs
+             (e, parts[0][i], parts[1][i], offs, parts[2][i], bd))
+            for i, e in enumerate(PS._halo_cols(xs, 1, pad=1))], xs
 
 
 def versus_sao(torch, KN, other: str) -> None:
@@ -1896,6 +1929,7 @@ def versus_sao(torch, KN, other: str) -> None:
 
     from vtm_tpu_torch.ops import sao_kernel as SK
     from vtm_tpu_torch.parallel import multichip as MCH
+    from vtm_tpu_torch.parallel import pic_shard as PS
 
     _, (plane_fn, ext_fn) = other_entries(KN, other, "sao.cu",
                                           ("vtm_sao_apply", "vtm_sao_apply_ext"))
@@ -1910,8 +1944,8 @@ def versus_sao(torch, KN, other: str) -> None:
                   offs.data_ptr(), valid.data_ptr(), H, W, offs.shape[0], bd, stream)
 
     sets = [(f"POC {k}", sao_ext_shards(torch, p, dev)[0]) for k, p in enumerate(pics)
-            if MCH.luma_chain_args(p)[3] is not None]
-    luma = torch.from_numpy(MCH.luma_chain_args(pic)[0]).to(dev)
+            if PS.luma_chain_args(p)[3] is not None]
+    luma = torch.from_numpy(PS.luma_chain_args(pic)[0]).to(dev)
     maps = seeded_sao_maps(torch, luma, np.random.default_rng(31))
     sets.append(("POC 0 seeded maps", sao_ext_shards(torch, pic, dev, maps=maps)[0]))
     for what, cases in sets:
@@ -2004,10 +2038,9 @@ def delta_shards(torch, pic: dict, dev, lanes: int = 8):
     and the bit depth."""
     from vtm_tpu_torch.ops import deblock_kernel as DK
     from vtm_tpu_torch.ops import edge_pad
-    from vtm_tpu_torch.parallel import multichip as MCH
     from vtm_tpu_torch.parallel import pic_shard as PS
 
-    x, dv, dh, *_ = MCH.luma_chain_args(pic)
+    x, dv, dh, *_ = PS.luma_chain_args(pic)
     bd = int(pic["bd"])
     devs = [dev] * lanes
     xs = PS._split_cols(PS._t(x), lanes, devs)
@@ -2040,19 +2073,16 @@ def check_shard_entries(torch, chk: KernelCheck, pic: dict, dev, lanes: int = 8)
     the sharded chain pads it, the extended-plane SAO on the VER shards,
     each with its neighbours' real halo (edge copies at the picture
     border), and the recon/SSE epilogue on two 1080p planes of 32x32
-    blocks; timed, and the delta's and the classifier's launch floors and
-    the device time of the torch calls that extend a shard for the SAO."""
+    blocks; timed, and the delta's and the classifier's launch floors."""
     import numpy as np
 
     from vtm_tpu_torch.ops import alf_kernel as AK
     from vtm_tpu_torch.ops import deblock_kernel as DK
-    from vtm_tpu_torch.ops import edge_pad
     from vtm_tpu_torch.ops import sao_kernel as SK
     from vtm_tpu_torch.parallel import mesh as MS
-    from vtm_tpu_torch.parallel import multichip as MCH
     from vtm_tpu_torch.parallel import pic_shard as PS
 
-    _, _, _, sao, alf, _ = MCH.luma_chain_args(pic)
+    _, _, _, sao, alf, _ = PS.luma_chain_args(pic)
     shards, ver_xs, bd = delta_shards(torch, pic, dev, lanes)
     for label, e, maps in shards:
         chk.compare("vtm_deblock_luma_ver_delta", f"1080p POC 0 {label}",
@@ -2076,7 +2106,7 @@ def check_shard_entries(torch, chk: KernelCheck, pic: dict, dev, lanes: int = 8)
         # shard 1 after VER, with 4-column halos and 4 edge rows: the
         # classifier's input on the sharded chain (there after HOR and SAO)
         rows = [PS._t(r).to(dev) for r in alf[5:12]]
-        p4 = edge_pad(PS._halo_cols(ver_xs, 4)[1], AK.PAD, 0)
+        p4 = PS._halo_cols(ver_xs, 4, pad=AK.PAD)[1]
         chk.compare("vtm_alf_classify",
                     f"1080p POC 0 shard 1 of {lanes}, {p4.shape[1]} columns",
                     lambda: AK.classify_picture_cuda(p4, *rows, bit_depth=bd),
@@ -2110,15 +2140,6 @@ def check_shard_entries(torch, chk: KernelCheck, pic: dict, dev, lanes: int = 8)
                         lambda: SK.sao_apply_ext_cuda(*args),
                         lambda: SK.sao_apply_ext_plain(*args), timed=True,
                         ins=args[:5], ops=8 * args[1].numel(), shape="shard")
-        # the two torch calls ahead of each shard's SAO on the sharded chain:
-        # the cat of its halo columns (PS._halo_cols) and its edge rows
-        halo = (xs[0][:, -1:], xs[1], xs[2][:, :1])
-        ext = torch.cat(halo, dim=1)
-        launch_floor(torch, chk, "halo cat", f"torch.cat of VER shard 1 and its halo "
-                     f"columns, {tuple(ext.shape)} int32", lambda: torch.cat(halo, dim=1))
-        launch_floor(torch, chk, "edge_pad", f"edge_pad(VER shard 1 with its halo "
-                     f"columns, 1, 0), its arange, clamp_ and gather launches",
-                     lambda: edge_pad(ext, 1, 0))
     rng = np.random.default_rng(23)
     shape = (2, 2040, 32, 32)
     resid, pred, orig = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (
@@ -2130,39 +2151,87 @@ def check_shard_entries(torch, chk: KernelCheck, pic: dict, dev, lanes: int = 8)
                 ins=(resid, pred, orig), ops=6 * resid.numel())
 
 
-def check_halo_exchange(torch, chk: KernelCheck, pic: dict, dev, lanes: int = 8,
-                        halo: int = 8) -> None:
-    """The port's halo_exchange (parallel/mesh.py) on the `lanes` width
-    shards of a captured picture's luma, as phase 6 splits it, each
-    transposed so that its rows are the picture's columns: every lane's
-    shard extended by `halo` columns of each neighbour (the deblocking's
-    halo; the ring's wrap-around at the ends).  Held to the shards
-    themselves, then timed (device ms; one torch.cat a lane) beside its
-    bytes bound, the halo rows read once and written once, and beside the
-    shard floors of check_shard_entries."""
-    import numpy as np
+def delta_bytes(shards, h: int) -> Bytes:
+    """Bytes of the deltas that vtm_halo_add_deltas reads: the centre of
+    each lane's delta tile and the h columns its neighbours computed for
+    each of its inner edges."""
+    rows, size = shards[0].shape[0], shards[0].element_size()
+    centre = sum(x.numel() for x in shards)
+    return Bytes((centre + 2 * (len(shards) - 1) * h * rows) * size)
 
+
+def all_equal(torch, got, want) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+
+
+def check_halo_kernels(torch, chk: KernelCheck, pic: dict, dev, lanes: int = 8) -> None:
+    """The two halo kernels against their plain versions on the `lanes`
+    VER shards of a captured picture's luma (as the chain's deblocking sees
+    it), timed at shape "shard" (the dry run's sharded luma chain): the
+    gather with h = 8 (the deblocking), 1 with one edge row (SAO) and 4 with
+    four (ALF), and the return of the VER deltas; each row's library column
+    is the torch.cat (+ edge_pad, or slices and +=) calls they replace, the
+    plain versions, timed the same way.  Then the ring of
+    mesh.halo_exchange on the shards transposed, 8 rows a side (no path
+    launches it), beside its bytes bound.  A gather's bytes bound counts
+    each shard read once and each extended shard written once: a halo
+    strip lies inside a neighbour's shard, already counted.  The delta
+    return's counts its neighbours' edge deltas besides (delta_bytes),
+    which lie outside the centres it reads."""
+    from vtm_tpu_torch.ops import alf_kernel as AK
+    from vtm_tpu_torch.ops import deblock_kernel as DK
     from vtm_tpu_torch.parallel import mesh as MS
+    from vtm_tpu_torch.parallel import pic_shard as PS
 
-    x = torch.from_numpy(np.asarray(pic["planes"][0], dtype=np.int32)).to(dev)
-    shards = [s.T.contiguous() for s in x.chunk(lanes, dim=1)]
+    x, dv, *_ = PS.luma_chain_args(pic)
+    bd = int(pic["bd"])
+    devs = [dev] * lanes
+    xs = PS._split_cols(PS._t(x), lanes, devs)
+    tag = f"{lanes} VER shards {tuple(xs[0].shape)} of 1080p POC 0"
+    for h, pad, what in ((8, 0, "deblocking"), (1, 1, "SAO"), (4, AK.PAD, "ALF")):
+        kw = dict(h=h, axis=1, wrap=False, pad=pad)
+        chk.compare("vtm_halo_gather", f"{tag}, h {h}, pad {pad} ({what})",
+                    lambda: MS.halo_gather_cuda(xs, **kw),
+                    lambda: MS.halo_gather_plain(xs, **kw), timed=True,
+                    ins=(xs,), shape="shard",
+                    library=(lambda: MS.halo_gather_plain(xs, **kw),
+                             lambda a, b: all_equal(torch, a, b)))
+    dvs = zip(*(PS._split_cols(PS._t(m), lanes, devs) for m in dv))
+    acc = [DK.luma_ver_delta_cuda(e, *m, bd)
+           for e, m in zip(MS.halo_gather_cuda(xs, 8), dvs)]
+    chk.compare("vtm_halo_add_deltas", f"{tag}, h 8 (the VER deltas' return)",
+                lambda: MS.halo_add_deltas_cuda(xs, acc, 8),
+                lambda: MS.halo_add_deltas_plain(xs, acc, 8), timed=True,
+                ins=(xs, delta_bytes(xs, 8)), shape="shard",
+                library=(lambda: MS.halo_add_deltas_plain(xs, acc, 8),
+                         lambda a, b: all_equal(torch, a, b)))
+    # the ring: each lane's transposed shard extended by 8 rows of each
+    # neighbour, the wrap at the ends
+    halo = 8
+    shards = [t.T.contiguous() for t in xs]
     out = MS.halo_exchange(shards, halo)
-    for i, (s, e) in enumerate(zip(shards, out)):
-        want = torch.cat([shards[i - 1][-halo:], s, shards[(i + 1) % lanes][:halo]])
+    for i, (t, e) in enumerate(zip(shards, out)):
+        want = torch.cat([shards[i - 1][-halo:], t, shards[(i + 1) % lanes][:halo]])
         if not torch.equal(e, want):
             raise AssertionError(f"halo_exchange: lane {i} != its neighbours' rows")
-    ms, paced = device_ms(torch, lambda: MS.halo_exchange(shards, halo))
-    if paced:
-        raise AssertionError(f"halo_exchange {paced}")
-    nb = 2 * lanes * 2 * halo * shards[0].shape[1] * shards[0].element_size()
-    bound = nb / BYTES_PER_S * 1e3
+    kw = dict(h=halo, axis=0, wrap=True)
+    chk.compare("vtm_halo_gather", f"{lanes} shards {tuple(shards[0].shape)} transposed, "
+                f"ring, {halo} rows a side (mesh.halo_exchange)",
+                lambda: MS.halo_gather_cuda(shards, **kw),
+                lambda: MS.halo_gather_plain(shards, **kw), timed=True,
+                ins=(shards,),
+                library=(lambda: MS.halo_gather_plain(shards, **kw),
+                         lambda a, b: all_equal(torch, a, b)))
+    last = chk.last
+    bound = last["bytes"] / BYTES_PER_S * 1e3
     floors = "; ".join(f"{k} {v:.6f} ms" for k, v in chk.floors.items()
                        if k.startswith(("torch.cuda._sleep", "torch copy_")))
-    print(f"halo_exchange [{lanes} lanes of {tuple(x.shape)} luma, shards "
-          f"{tuple(shards[0].shape)} transposed, {halo} halo rows a side]: equal to the "
-          f"neighbours' rows; {ms:.6f} ms device ({lanes} torch.cat launches), {nb} halo "
-          f"bytes read and written, bound {bound:.6f} ms (bytes), {100 * bound / ms:.2f} % "
-          f"of bound; shard floors: {floors}", flush=True)
+    print(f"halo_exchange [{lanes} lanes, shards {tuple(shards[0].shape)} transposed, "
+          f"{halo} halo rows a side]: equal to the neighbours' rows; {last['ms']:.6f} ms "
+          f"device (one vtm_halo_gather launch), {last['bytes']} bytes (shards read "
+          f"once, extended shards written once), bound {bound:.6f} ms "
+          f"(bytes), {100 * bound / last['ms']:.2f} % of bound; shard floors: {floors}",
+          flush=True)
 
 
 def mesh_inputs(torch, dev) -> dict:
@@ -2364,6 +2433,208 @@ def mesh_path(torch, KN, hd_cap: dict, mesh_in: dict) -> dict:
                              f"of each stage {counts}")
     print(f"launches, all {REPEATS} runs of each stage: {total}", flush=True)
     return counts
+
+
+class LiveRecorder:
+    """Records, while phase 6's live decode mesh runs, every call of the
+    kernel wrappers its sharded path launches (the luma chain's inside
+    pic_shard.luma_picture, every vtm_mc_tiles): the wrapper, its plain
+    version, a copy of its arguments, its launches, and the shape it ran at
+    (`live shard WxH`: a lane's shard of a picture split over the 'tile'
+    lanes; `live MC lane share <stream>`: a lane's share of that stream's
+    MC batches), so that each call is later held to its plain version and
+    timed at that shape.  Other launches (the chroma stages on the home
+    lane, DMVR, BDOF) run at whole pictures and are not recorded."""
+
+    SHARD = (("DK", "luma_ver_delta", "vtm_deblock_luma_ver_delta"),
+             ("SK", "sao_apply_ext", "vtm_sao_apply_ext"),
+             ("AK", "classify_picture", "vtm_alf_classify"),
+             ("AK", "alf_filter", "vtm_alf_filter"),
+             ("MS", "halo_gather", "vtm_halo_gather"),
+             ("MS", "halo_add_deltas", "vtm_halo_add_deltas"))
+
+    def __init__(self, torch, KN, modules: dict):
+        self.torch, self.KN = torch, KN
+        self.calls = []  # (kernel, shape, cuda fn, plain fn, args, kwargs, launches)
+        self.shard = None  # shape of the luma_picture call running, if any
+        self.stream = None  # the stream being decoded
+        self._undo = []
+        for mod, name, kernel in self.SHARD:
+            self._wrap(modules[mod], name, kernel, shard=True)
+        self._wrap(modules["MK"], "mc_tiles", "vtm_mc_tiles", shard=False)
+        PS = modules["PS"]
+        real = PS.luma_picture
+
+        def luma_picture(lanes, home, x, *args, **kw):
+            self.shard = f"live shard {x.shape[1] // len(lanes)}x{x.shape[0]}"
+            try:
+                return real(lanes, home, x, *args, **kw)
+            finally:
+                self.shard = None
+
+        PS.luma_picture = luma_picture
+        self._undo.append((PS, "luma_picture", real))
+
+    def _wrap(self, mod, name: str, kernel: str, shard: bool) -> None:
+        real, plain = getattr(mod, f"{name}_cuda"), getattr(mod, f"{name}_plain")
+
+        def rec(*args, **kw):
+            shape = self.shard if shard else (
+                None if self.stream is None else f"live MC lane share {self.stream}")
+            if shape is None:
+                return real(*args, **kw)
+            before = self.KN.launch_counts()[kernel]
+            out = real(*args, **kw)
+            launched = self.KN.launch_counts()[kernel] - before
+            kw = {k: v for k, v in kw.items() if k != "out"}
+            self.calls.append((kernel, shape, real, plain, self._copy(args), kw, launched))
+            return out
+
+        setattr(mod, f"{name}_cuda", rec)
+        self._undo.append((mod, f"{name}_cuda", real))
+
+    def _copy(self, a):
+        if isinstance(a, (list, tuple)):
+            return type(a)(self._copy(x) for x in a)
+        return a.clone() if self.torch.is_tensor(a) else a
+
+    def close(self) -> None:
+        for mod, name, real in reversed(self._undo):
+            setattr(mod, name, real)
+
+    def by_shape(self) -> dict:
+        """{shape: {kernel: launches}} of the recorded calls."""
+        out = {}
+        for kernel, shape, *_, launched in self.calls:
+            row = out.setdefault(shape, {})
+            row[kernel] = row.get(kernel, 0) + launched
+        return out
+
+
+def live_cost(kernel: str, args, kw):
+    """(ins, ops) of one recorded call of the live mesh, counted as phase 3
+    counts the same kernel's cases."""
+    if kernel == "vtm_deblock_luma_ver_delta":
+        return (args[0], args[1:8]), 10 * args[0].numel()
+    if kernel == "vtm_sao_apply_ext":
+        return args[:5], 8 * args[1].numel()
+    if kernel == "vtm_alf_classify":
+        p4 = args[0]
+        return (p4, args[1:]), 12 * (p4.shape[0] - 8) * (p4.shape[1] - 8)
+    if kernel == "vtm_alf_filter":
+        p4 = args[0]
+        return args[:5], 48 * (p4.shape[0] - 8) * (p4.shape[1] - 8)
+    if kernel == "vtm_halo_gather":
+        return (args[0],), 0
+    if kernel == "vtm_halo_add_deltas":
+        return (args[0], delta_bytes(args[0], args[2])), 0
+    planes, jobs = args[0], args[1:8]
+    return ((mc_ref_bytes(planes, jobs, kw["taps"], kw["tile"]), jobs),
+            mc_ops(jobs[0].shape[0], kw["taps"], kw["tile"]))
+
+
+def live_mesh(torch, KN, chk: KernelCheck, mesh_off: dict) -> dict:
+    """The live decode mesh: Decoder(device="cuda") under decode_mesh_ctx on
+    codec_mesh(4, gop=2) (2 x 2 lanes sharing the card), each of
+    LIVE_STREAMS decoded once: every picture hash-exact and its planes equal
+    to phase 4's mesh-off decode, s/picture beside mesh-off, the route each
+    picture's chain took (mesh.routes), and the LIVE_KERNELS launched.
+    Counts are zeroed here; returns the launches by shape ({shape: {kernel:
+    n}}): the recorded sharded calls at their `live ...` shapes (each then
+    held to its plain version and timed there, after the counts are read),
+    every other launch at its stream's pictures' size_key."""
+    import numpy as np
+
+    from vtm_tpu_torch.decoder.declib import Decoder
+    from vtm_tpu_torch.ops import alf_kernel as AK
+    from vtm_tpu_torch.ops import deblock_kernel as DK
+    from vtm_tpu_torch.ops import mc_kernel as MK
+    from vtm_tpu_torch.ops import sao_kernel as SK
+    from vtm_tpu_torch.parallel import mesh as MS
+    from vtm_tpu_torch.parallel import pic_shard as PS
+
+    mesh = MS.codec_mesh(4, gop=2, device="cuda")
+    rec = LiveRecorder(torch, KN, dict(DK=DK, SK=SK, AK=AK, MS=MS, MK=MK, PS=PS))
+    by_shape = {}
+    KN.reset_launch_counts()
+    try:
+        for name in LIVE_STREAMS:
+            planes_off, s_off = mesh_off[name]
+            mesh.routes.clear()
+            n_rec = len(rec.calls)
+            before = KN.launch_counts()
+            rec.stream = name
+            t0 = time.perf_counter()
+            with MS.decode_mesh_ctx(mesh):
+                dec = Decoder(device="cuda")
+                pics = dec.decode_stream(read_stream(name))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            rec.stream = None
+            after = KN.launch_counts()
+            if not pics or len(dec.hash_results) != len(pics):
+                raise AssertionError(f"live mesh {name}: {len(pics)} pictures, "
+                                     f"{len(dec.hash_results)} hashes")
+            bad = [hr.poc for hr in dec.hash_results if not hr.ok]
+            if bad:
+                raise AssertionError(f"live mesh {name}: hash mismatch at POC {bad}")
+            got = [[np.asarray(p) for p in pic.planes] for pic in pics]
+            if len(got) != len(planes_off) or not all(
+                    np.array_equal(a, b) for g, w in zip(got, planes_off)
+                    for a, b in zip(g, w, strict=True)):
+                raise AssertionError(f"live mesh {name}: planes differ from the "
+                                     "mesh-off decode")
+            launched = {k: after[k] - before[k] for k in after}
+            recorded = {}
+            for kernel, _, _, _, _, _, n in rec.calls[n_rec:]:
+                recorded[kernel] = recorded.get(kernel, 0) + n
+            key = planes_key(got[0])
+            attribute(by_shape, key, {k: v - recorded.get(k, 0) for k, v in launched.items()})
+            routes = {}
+            for r in mesh.routes:
+                routes[r["route"]] = routes.get(r["route"], 0) + 1
+            per_pic = "; ".join(f"{i}: {r['route']} ({r['lanes']} lane"
+                                f"{'s' if r['lanes'] > 1 else ''})"
+                                for i, r in enumerate(mesh.routes))
+            print(f"live mesh {name} ({key}) on {mesh.gop} x {mesh.tile} lanes of "
+                  f"{sorted({str(d) for d in mesh.devices})}: {len(pics)} pictures, hashes "
+                  f"OK, planes equal to mesh-off; {dt / len(pics):.6f} s/picture mesh on, "
+                  f"{s_off:.6f} s/picture mesh off ({dt / len(pics) / s_off:.4f}x); "
+                  f"chain routes {routes or 'none (no loop filter)'}"
+                  f"{' [' + per_pic + ']' if per_pic else ''}; "
+                  f"launches { {k: v for k, v in launched.items() if v} }", flush=True)
+    finally:
+        rec.close()
+    total = KN.launch_counts()
+    for shape, launched in rec.by_shape().items():
+        attribute(by_shape, shape, launched)
+    check_attributed(by_shape, total, "the live decode mesh")
+    idle = [k for k in LIVE_KERNELS if total[k] == 0]
+    if idle:
+        raise AssertionError(f"the live decode mesh did not launch {idle}")
+    print(f"launches, live decode mesh: { {k: v for k, v in total.items() if v} }",
+          flush=True)
+    # every recorded call against its plain version, timed at its shape
+    t0 = time.perf_counter()
+    sums = {}
+    for i, (kernel, shape, real, plain, args, kw, n) in enumerate(rec.calls):
+        ins, ops = live_cost(kernel, args, kw)
+        # the halo rows' library column: the torch calls they replaced
+        library = ((lambda: plain(*args, **kw), lambda a, b: all_equal(torch, a, b))
+                   if kernel.startswith("vtm_halo") else None)
+        chk.compare(kernel, f"{shape} call {i}", lambda: real(*args, **kw),
+                    lambda: plain(*args, **kw), timed=True, ins=ins, ops=ops,
+                    quiet=True, shape=shape, weight=n, library=library)
+        row = sums.setdefault((shape, kernel), [0, 0.0, 0.0])
+        row[0] += 1
+        row[1] += chk.last["ms"]
+        row[2] += max(chk.last["bytes"] / BYTES_PER_S, ops / chk.rows[kernel]["peak"]) * 1e3
+    for (shape, kernel), (n, ms, bound) in sorted(sums.items()):
+        print(f"{kernel} [{shape}]: {n} recorded calls equal to the plain version, "
+              f"{ms:.6f} ms device in all, bound {bound:.6f} ms", flush=True)
+    print(f"live mesh calls checked and timed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return by_shape
 
 
 def encode_small(torch, KN, Decoder, IntraEncoder, name: str, kw: dict) -> dict:
@@ -2760,38 +3031,43 @@ def redesign_order(chk: KernelCheck, launches: dict) -> list:
 
 def sao_ext_reach(chk: KernelCheck) -> None:
     """The extended-plane SAO's shard launches beside an empty kernel, a
-    copy of a VER shard's plane and the two torch calls that build each
-    shard's extended plane on the sharded chain (the halo columns' cat and
-    edge_pad), timed in the same run: half of a launch's bound would need a
-    launch within twice that bound, and an entry that read the shard and
-    its halo columns in place would save the two calls."""
-    cases = chk.rows["vtm_sao_apply_ext"]["cases"]
+    copy of a VER shard's plane and the vtm_halo_gather launch that builds
+    every shard's extended plane ahead of them on the sharded chain (its
+    1-column case, and the torch calls it replaced), timed in the same run:
+    half of a launch's bound would need a launch within twice that bound."""
+    cases = [c for c in chk.rows["vtm_sao_apply_ext"]["cases"]
+             if c[0].startswith("1080p POC 0 shard")]
     ms = [m for _, m, _ in cases]
     bound = max(b for _, _, b in cases)
 
     def floor(prefix):
         return next(v for k, v in chk.floors.items() if k.startswith(prefix))
 
-    cat, pad = floor("torch.cat of VER"), floor("edge_pad(VER")
+    gather = next(m for label, m, _ in chk.rows["vtm_halo_gather"]["cases"]
+                  if "(SAO)" in label)
     print(f"vtm_sao_apply_ext at shard shape: {min(ms):.6f}-{max(ms):.6f} ms a launch, "
           f"bound at most {bound:.6f} ms, so half of it needs at most {2 * bound:.6f} ms; "
           f"an empty kernel takes {floor('torch.cuda._sleep'):.6f} ms, a torch copy_ of a "
           f"VER shard's plane (fewer bytes than a launch moves) "
-          f"{floor('torch copy_ of VER'):.6f} ms; ahead of each shard's launch the "
-          f"sharded chain spends {cat:.6f} ms (halo torch.cat) + {pad:.6f} ms (edge_pad) "
-          f"= {cat + pad:.6f} ms of device time that an entry reading the shard and its "
-          f"halo columns in place would save", flush=True)
+          f"{floor('torch copy_ of VER'):.6f} ms; ahead of the {len(ms)} shard launches "
+          f"of a picture the sharded chain spends {gather:.6f} ms of device time on one "
+          f"vtm_halo_gather launch for all the lanes", flush=True)
 
 
-def decode_golden(torch, KN, Decoder) -> None:
+def decode_golden(torch, KN, Decoder) -> dict:
     """Every golden stream of testdata/ decoded on the card: each picture
     hash-exact, and a stream whose pictures are not all hashed equal to the
-    .dec.yuv (else .rec.yuv) beside it; prints each stream's launches."""
+    .dec.yuv (else .rec.yuv) beside it; prints each stream's launches.
+    Returns, for each of LIVE_STREAMS, its pictures' planes and its seconds
+    a picture (the mesh-off decode phase 6's live mesh is held to)."""
     import io
+
+    import numpy as np
 
     from vtm_tpu_torch.utils import yuv_io
 
     names = sorted(f[:-4] for f in os.listdir(TESTDATA) if f.endswith(".bit"))
+    kept = {}
     for name in names:
         before = KN.launch_counts()
         t0 = time.perf_counter()
@@ -2823,8 +3099,15 @@ def decode_golden(torch, KN, Decoder) -> None:
         launched = {k: after[k] - before[k] for k in after if after[k] > before[k]}
         print(f"golden {name}: {len(pics)} pictures, {how}, {dt:.4f} s on cuda; "
               f"launches {launched}", flush=True)
+        if name in LIVE_STREAMS:
+            kept[name] = ([[np.asarray(p) for p in pic.planes] for pic in pics],
+                          dt / len(pics))
     print(f"golden streams: all {len(names)} of testdata decoded exactly on the card",
           flush=True)
+    missing = set(LIVE_STREAMS) - set(kept)
+    if missing:
+        raise AssertionError(f"the live mesh's streams {sorted(missing)} are not in testdata")
+    return kept
 
 
 def decode(torch, Decoder, name: str, chain_events: list) -> tuple[int, str]:
@@ -2920,7 +3203,7 @@ def main() -> int:
               10, "10-bit 1920x1080 seeded", timed=False)
     check_transforms(torch, chk, dev)
     check_shard_entries(torch, chk, pic0, dev)
-    check_halo_exchange(torch, chk, pic0, dev)
+    check_halo_kernels(torch, chk, pic0, dev)
     mesh_in = mesh_inputs(torch, dev)
     check_mesh_batches(torch, chk, mesh_in, dev)
 
@@ -2966,7 +3249,7 @@ def main() -> int:
         raise AssertionError("SAO or ALF did not run on the 1080p stream")
     if any(ra[k] < 1 for k in INTER_KERNELS):
         raise AssertionError(f"an inter kernel did not run on {RA_STREAM}")
-    decode_golden(torch, KN, Decoder)
+    mesh_off = decode_golden(torch, KN, Decoder)
 
     # 5. the encode main path, with the launch counts of this run only; the
     # CPU twin of the inter encode (a) runs beside it; the GOP-parallel
@@ -3034,7 +3317,11 @@ def main() -> int:
     idle = [k for k in MESH_KERNELS if mesh_counts[k] == 0]
     if idle:
         raise AssertionError(f"the multi-device path did not launch {idle}")
-    counts = {k: dec_counts[k] + enc_counts[k] + mesh_counts[k] for k in dec_counts}
+    # the live decode mesh, with its own counts
+    live_by = live_mesh(torch, KN, chk, mesh_off)
+    live_counts = {k: sum(c.get(k, 0) for c in live_by.values()) for k in KN.KERNELS}
+    counts = {k: dec_counts[k] + enc_counts[k] + mesh_counts[k] + live_counts[k]
+              for k in dec_counts}
     for k, why in NOT_ON_MAIN_PATH.items():
         print(f"{k}: not launched by name on the main path: {why}", flush=True)
     missing = [k for k, v in counts.items() if v == 0 and k not in NOT_ON_MAIN_PATH]
@@ -3067,7 +3354,7 @@ def main() -> int:
     # each launch weighed at the shape it runs at: the size of its picture,
     # a lane's shard, or the inter encode's preselection call
     by_shape = {}
-    for by in (dec_by, enc_by, mesh_by):
+    for by in (dec_by, enc_by, mesh_by, live_by):
         for shape, launched in by.items():
             attribute(by_shape, shape, launched)
     for shape, launched in sorted(by_shape.items()):

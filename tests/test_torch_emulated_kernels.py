@@ -27,7 +27,10 @@ unaligned pointers), and the inverse
 transform's register-tiled CTAs (square blocks in groups, a persistent CTA
 walking several groups, ragged last groups) beside its general kernel
 (every other shape, and unaligned pointers), with the reconstruction
-epilogue.  The deblocking kernels' precondition, disjoint luma filter
+epilogue; and the halo kernels (every lane of a card in one launch, the
+lanes' pointers by value: the ring and the edge-replicated borders along
+rows and columns, edge padding across, ragged shard widths, and a delta
+return whose edges overlap).  The deblocking kernels' precondition, disjoint luma filter
 extents, is checked in linear time (tests/_deblock_maps.py), held to the
 pairwise check here.  Tolerance 0.
 """
@@ -68,7 +71,7 @@ def lib(tmp_path_factory):
 
     return build.load(str(tmp_path_factory.mktemp("emu")),
                       ["rdcost.cu", "rmd.cu", "deblock.cu", "mc.cu", "alf.cu",
-                       "refine.cu", "transform.cu", "sao.cu"])
+                       "refine.cu", "transform.cu", "sao.cu", "halo.cu"])
 
 
 def test_satd_batch(lib):
@@ -863,3 +866,69 @@ def test_recon_sse(emu_launch):
     want_recon, want_sse = MS.recon_sse_plain(resid, pred, orig)
     np.testing.assert_array_equal(recon.numpy(), want_recon.numpy())
     assert int(sse[0]) == int(want_sse[0])
+
+
+# ---------------------------------------------------------------------------
+# the halo kernels (csrc/halo.cu): a lane's shard is 2 x 32 + 5 wide along
+# its split axis (two blocks and a ragged third), or ragged per lane
+
+
+def _halo_shards(rng, n, h, axis, ragged):
+    across = 11
+    lens = [h + int(rng.integers(0, 40)) if ragged else 69 for _ in range(n)]
+    return [torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (across, ln) if axis == 1
+                                          else (ln, across), dtype=np.int64)
+                             .astype(np.int32)) for ln in lens]
+
+
+@pytest.mark.parametrize("wrap,pad", [(False, 0), (False, 1), (False, 4), (True, 0),
+                                      (True, 2)])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("n,h,ragged", [(2, 1, False), (3, 4, True), (5, 8, False),
+                                        (8, 4, True)])
+def test_halo_gather(emu_launch, n, h, ragged, axis, wrap, pad):
+    """vtm_halo_gather through halo_gather_cuda against halo_gather_plain:
+    every lane in one launch, each extended shard written whole."""
+    rng = np.random.default_rng(160 + 7 * n + h + axis + 2 * pad + wrap)
+    shards = _halo_shards(rng, n, h, axis, ragged)
+    got = MS.halo_gather_cuda(shards, h, axis=axis, wrap=wrap, pad=pad)
+    want = MS.halo_gather_plain(shards, h, axis=axis, wrap=wrap, pad=pad)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("h,lens", [(1, (3, 1, 2)), (4, (37, 5, 4, 69)),
+                                    (8, (8, 12, 15, 40, 9, 16, 33, 8))])
+def test_halo_add_deltas(emu_launch, h, lens):
+    """vtm_halo_add_deltas through halo_add_deltas_cuda against
+    halo_add_deltas_plain: ragged widths, shards narrower than 2h (the
+    deltas from both neighbours land on one column), int32 wrap."""
+    rng = np.random.default_rng(170 + h)
+    rows = 13
+    xs = [torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (rows, ln), dtype=np.int64)
+                           .astype(np.int32)) for ln in lens]
+    ds = [torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (rows, ln + 2 * h),
+                                        dtype=np.int64).astype(np.int32)) for ln in lens]
+    got = MS.halo_add_deltas_cuda(xs, ds, h)
+    want = MS.halo_add_deltas_plain(xs, ds, h)
+    for g, w in zip(got, want, strict=True):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+def test_halo_entries_refuse_bad_tables(lib, emu_launch):
+    """The C entries refuse more lanes than a table holds, a zero halo and
+    a shard narrower than its halo; the wrappers refuse them first."""
+    x = torch.zeros(4, 6, dtype=torch.int32)
+    words = [x.data_ptr(), x.data_ptr(), 0, 0, 6, 0, 0, 0, 0] * 33
+    table = (ctypes.c_uint64 * len(words))(*words)
+    assert lib.vtm_halo_gather(ctypes.addressof(table), 33, 4, 1, 0, 1, None) != 0
+    assert lib.vtm_halo_gather(ctypes.addressof(table), 1, 4, 0, 0, 1, None) != 0
+    dwords = [x.data_ptr()] * 3 + [0, 0, 6, 0, 0, 0, 0]
+    dtable = (ctypes.c_uint64 * len(dwords))(*dwords)
+    assert lib.vtm_halo_add_deltas(ctypes.addressof(dtable), 1, 4, 7, None) != 0
+    with pytest.raises(ValueError, match="at most 32"):
+        MS.halo_gather_cuda([x] * 33, 1)
+    with pytest.raises(ValueError, match="less than the halo"):
+        MS.halo_gather_cuda([x, x], 7)
+    with pytest.raises(ValueError, match="at least 7"):
+        MS.halo_add_deltas_cuda([x, x], [torch.zeros(4, 20, dtype=torch.int32)] * 2, 7)

@@ -9,7 +9,8 @@ both, and every sample result must be equal (tolerance 0):
   - the three `pic_shard` functions on the reference's own capture of a
     decode of ra_full_small208_qp32 (`__graft_entry__._capture_real_picture`,
     used read-only), at n = 2, 4 and 8, against jax's sharded output and the
-    captured single-device result;
+    captured single-device result, and the luma chain once more with its
+    deblocking alone (the deltas' return to the neighbours);
   - the two entries that width sharding adds to the filter kernels
     (`luma_ver_delta` on a shard with a real halo, `sao_apply_ext`);
   - the port's own dry run (`dryrun_multichip(n, device="cpu")`), in this
@@ -172,6 +173,41 @@ def test_sharded_luma_filters_match_jax(ref_capture, n):
     np.testing.assert_array_equal(got.numpy(), want)
     for b, c in enumerate(sel):
         np.testing.assert_array_equal(got[b].numpy(), c["luma_out"])
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_sharded_deblocking_matches_jax(ref_capture, n):
+    """The sharded luma chain with its deblocking alone, no SAO and no ALF:
+    the return of the VER deltas to the lanes that own their samples (the
+    reference's ppermute at pic_shard.py:89-95, mesh.halo_add_deltas here)
+    feeds the HOR pass and then the output, with no later stage to hide a
+    slip in it.  Only an edge on a shard boundary has deltas in a halo, so
+    each inner boundary column of the capture's VER maps takes the maps of
+    the 8-aligned column with the most active edges."""
+    from vtm_tpu.parallel import mesh as RM
+    from vtm_tpu.parallel import pic_shard as RPS
+
+    pc, group = _luma_args(ref_capture)
+    tile = MC.pick_tile(n, pc["luma_in"].shape[1])
+    gop = n // tile
+    sel = [group[i % len(group)] for i in range(gop)]
+    x, dv, dh, *_ = _batched(pc, sel)
+    w4 = dv[0].shape[-1] // tile
+    inner = [t * w4 for t in range(1, tile)]
+    src = max((c for c in range(0, tile * w4, 2) if c % w4),
+              key=lambda c: int(dv[0][..., c].sum()))
+    dv = tuple(m.copy() for m in dv)
+    for m in dv:
+        m[..., inner] = m[..., [src]]
+    assert all(dv[0][..., c].any() for c in inner)
+    args = [x, dv, dh]
+    bd = int(pc["bit_depth"])
+    want = np.asarray(RPS.make_sharded_luma_filters(RM.codec_mesh(n, gop=gop), False,
+                                                    False, bd)(*args))
+    got = PS.make_sharded_luma_filters(M.codec_mesh(n, gop=gop, device="cpu"), False,
+                                       False, bd)(*args)
+    assert not np.array_equal(want, args[0])
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("n", [2, 4, 8])

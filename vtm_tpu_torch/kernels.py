@@ -60,6 +60,8 @@ _SIGNATURES = {
     "vtm_inv_transform": (_P, _P, _P, _P, _LL, _I, _I, _I, _P),
     "vtm_inv_transform_s8": (_P, _P, _P, _P, _LL, _I, _I, _I, _P),
     "vtm_recon_sse": (_P, _P, _P, _P, _P, _LL, _P),
+    "vtm_halo_gather": (_P, _I, _I, _I, _I, _I, _P),
+    "vtm_halo_add_deltas": (_P, _I, _I, _I, _P),
 }
 KERNELS = tuple(_SIGNATURES)
 

@@ -25,9 +25,13 @@ Why one branch-free form covers VTM's four filter paths
   value, as up to MAX_PLANES pointers in its kernel parameters (no
   stacking, no copy to the card).
 
+While a decode mesh is active (parallel/mesh.py:decode_mesh_ctx),
+`execute_many` splits each component class's job axis over every lane of
+the mesh (the reference's L246-258, where GSPMD partitions the batch).
+
 Not carried over from the reference: batch-size buckets and the
-power-of-two padding of the plane stack (they bounded XLA compiles), the
-CAPTURE hook and the mesh branch.
+power-of-two padding of the plane stack (they bounded XLA compiles) and
+the CAPTURE hook.
 """
 
 from __future__ import annotations
@@ -161,7 +165,8 @@ def mc_tiles_pair(largs, cargs, bd: int) -> torch.Tensor:
 def execute_many(batches) -> None:
     """Run several McBatch instances together: per component class, all
     their tiles go into one kernel call over the union of their reference
-    planes, and one device-to-host copy brings every result back."""
+    planes (one call a lane while a decode mesh is active: mesh_pair), and
+    one device-to-host copy brings every result back."""
     batches = [b for b in batches if b.n[True] or b.n[False]]
     if not batches:
         return
@@ -169,7 +174,10 @@ def execute_many(batches) -> None:
     for b in batches:
         if b.bd != bd or b.device != dev:
             raise ValueError("execute_many: batches differ in bit depth or device")
-    args = {}
+    from vtm_tpu_torch.parallel import mesh as MESH
+
+    dmesh = MESH.decode_mesh()
+    cols = {}
     for lum in (True, False):
         planes, slot, jobs = [], {}, []
         for b in batches:
@@ -183,14 +191,15 @@ def execute_many(batches) -> None:
                 remap.append(slot[id(p)])
             r, *rest = b._jobs(lum)
             jobs.append((np.asarray(remap, dtype=np.int32)[r], *rest))
-        if not jobs:
-            args[lum] = None
-            continue
-        cols = [np.concatenate(c) for c in zip(*jobs)]
-        ints = upload(cols[:5], dev)
-        flags = upload(cols[5:], dev, dtype=np.bool_)
-        args[lum] = (planes, *ints, *flags)
-    packed = mc_tiles_pair(args[True], args[False], bd).cpu().numpy()
+        cols[lum] = (planes, [np.concatenate(c) for c in zip(*jobs)]) if jobs else None
+    if dmesh is not None:
+        packed, sizes = mesh_pair(dmesh, cols, bd, dev)
+    else:
+        args = {lum: None if c is None else
+                (c[0], *upload(c[1][:5], dev), *upload(c[1][5:], dev, dtype=np.bool_))
+                for lum, c in cols.items()}
+        packed = mc_tiles_pair(args[True], args[False], bd).cpu().numpy()
+        sizes = {lum: 0 if c is None else len(c[1][0]) for lum, c in cols.items()}
     off = 0
     for lum in (True, False):
         tile = SHAPES[lum][1]
@@ -199,6 +208,71 @@ def execute_many(batches) -> None:
             if size:
                 b.results[lum] = packed[off:off + size].reshape(-1, tile, tile)
                 off += size
+        off += (sizes[lum] - sum(b.n[lum] for b in batches)) * tile * tile
+
+
+def lane_planes(planes, dev: torch.device) -> list:
+    """The reference planes as a lane on `dev` reads them: as they are on
+    their own card; else one copy a plane on `dev`, made at first use and
+    kept on the plane tensor (a picture's device plane), so that a picture
+    crosses to each card once."""
+    out = []
+    for p in planes:
+        if p.device == dev:
+            out.append(p)
+            continue
+        copies = p.__dict__.setdefault("_lane_copies", {})
+        if dev not in copies:
+            copies[dev] = p.to(dev)
+        out.append(copies[dev])
+    return out
+
+
+def mesh_pair(mesh, cols, bd: int, dev: torch.device):
+    """Each component class's jobs split over every lane of `mesh`, in its
+    gop-major lane order, padded with zero jobs to a multiple of the lane
+    count (as pic_shard.split_mc_jobs pads); each lane launches its share on
+    its own device into its part of one flat output on `dev` (a lane on
+    another card through a copy), fetched in one copy.  cols: {lum: None or
+    (planes, [r, x, y, cH, cV, fy, rnd] numpy columns)}.  Returns (the
+    fetched flat output, luma first; {lum: padded job count}).  Raises
+    ValueError where mesh.check_home refuses the lanes for `dev`."""
+    mesh.check_home(dev)
+    lanes = mesh.devices
+    sizes, parts = {}, []
+    for lum, c in cols.items():
+        if c is None:
+            sizes[lum] = 0
+            continue
+        planes, job_cols = c
+        n = len(job_cols[0])
+        share = -(-n // len(lanes))
+        sizes[lum] = share * len(lanes)
+        padded = []
+        for a in job_cols:
+            z = np.zeros((sizes[lum],) + a.shape[1:], dtype=a.dtype)
+            z[:n] = a
+            padded.append(z)
+        parts.append((lum, planes, share, padded))
+    flat = torch.empty(sum(sizes[lum] * SHAPES[lum][1] ** 2 for lum in sizes),
+                       dtype=torch.int32, device=dev)
+    pos = 0
+    for lum, planes, share, padded in parts:
+        taps, tile = SHAPES[lum]
+        ints = upload(padded[:5], dev)
+        flags = upload(padded[5:], dev, dtype=np.bool_)
+        for k, lane in enumerate(lanes):
+            jobs = [a[k * share:(k + 1) * share] for a in ints + flags]
+            view = flat[pos:pos + share * tile * tile].view(share, tile, tile)
+            pos += share * tile * tile
+            if lane != dev:
+                jobs = [a.to(lane) for a in jobs]
+            lp = lane_planes(planes, lane)
+            if lane.type == "cuda" and lane == dev:
+                mc_tiles_cuda(lp, *jobs, taps=taps, tile=tile, bd=bd, out=view)
+            else:
+                view.copy_(mc_tiles(lp, *jobs, taps=taps, tile=tile, bd=bd))
+    return flat.cpu().numpy(), sizes
 
 
 class McBatch:

@@ -1,16 +1,21 @@
 """The multi-device dry run: a real decode's chain inputs and MC batch,
-re-run sharded over a mesh of lanes and held to the single-lane results.
+re-run sharded over a mesh of lanes and held to the single-lane results;
+then the live decode mesh.
 
-Counterpart of __graft_entry__.py:57-187 (`_capture_real_picture`,
-`dryrun_multichip`) without its live-decode section.  The port's Decoder
-decodes a golden stream once; `capture_decode` records each picture's
-filter-chain inputs and packed output and the MC tile batches of the
-decode, by wrapping the chain and MC entry points of the port's modules for
-the length of that decode (no capture flag lives in the decoder).  The
-wrappers record only the capturing thread's calls, and one capture runs at
-a time.  Then `dryrun_multichip` runs the three sharded functions of
-parallel/pic_shard.py and raises unless every lane equals its own picture's
-single-lane result.
+Counterpart of __graft_entry__.py:57-211 (`_capture_real_picture`,
+`dryrun_multichip`).  The port's Decoder decodes a golden stream once;
+`capture_decode` records each picture's filter-chain inputs and packed
+output and the MC tile batches of the decode, by wrapping the chain and MC
+entry points of the port's modules for the length of that decode (no
+capture flag lives in the decoder).  The wrappers record only the
+capturing thread's calls, and one capture runs at a time.  Then
+`dryrun_multichip` runs the three sharded functions of
+parallel/pic_shard.py and raises unless every lane equals its own
+picture's single-lane result.  `live_decode` runs the product decoder
+itself under `decode_mesh_ctx` on a mesh (every MC batch split over all
+the lanes, the luma chain width-sharded over 'tile') and raises unless
+every picture is hashed and every hash matches; the command line runs it
+after each dry run, on a mesh of as many lanes.
 
     python -m vtm_tpu_torch.parallel.multichip [n ...] [--device cpu]
 """
@@ -30,12 +35,13 @@ from vtm_tpu_torch.decoder.declib import Decoder
 from vtm_tpu_torch.ops import filter_chain as FC
 from vtm_tpu_torch.ops import mc_kernel as MK
 from vtm_tpu_torch.parallel import pic_shard as PS
-from vtm_tpu_torch.parallel.mesh import codec_mesh
+from vtm_tpu_torch.parallel.mesh import codec_mesh, decode_mesh_ctx
 
 TESTDATA = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "testdata")
 STREAM = "ra_full_small208_qp32"
-LUMA_FIELDS = FC.DMAP_FIELDS[:7]
+# the live decode's streams, the first one present (__graft_entry__.py:202)
+LIVE_STREAMS = ("ld_min_tiny64_qp32", "ai_min_tiny64_qp27")
 # luma MC batches smaller than this are not worth sharding (the reference
 # captures the last batch of at least 64 tiles)
 MIN_MC_JOBS = 64
@@ -108,26 +114,6 @@ def _capture_decode(name: str, device) -> dict:
     if not pics:
         raise AssertionError(f"{name}: no filter chain ran")
     return dict(pics=pics, mc=got["mc"])
-
-
-def luma_chain_args(pic: dict):
-    """The sharded luma chain's inputs of one captured picture: (x, dv, dh
-    (transposed), sao or None, alf or None, luma_out); x is after the LMCS
-    inverse mapping, as the chain's deblocking sees it."""
-    x = np.asarray(pic["planes"][0], dtype=np.int32)
-    H, W = x.shape
-    if pic["lmcs_lut"] is not None:
-        x = np.asarray(pic["lmcs_lut"], dtype=np.int32)[x]
-    zero = [np.zeros((H // 4, W // 4), bool if f in ("l_active", "l_nop", "l_noq")
-                     else np.int32) for f in LUMA_FIELDS]
-    dmaps = pic["dmaps"]
-    dv = [getattr(dmaps[0], f) for f in LUMA_FIELDS] if dmaps else zero
-    dh = [np.ascontiguousarray(m.T) for m in
-          ([getattr(dmaps[1], f) for f in LUMA_FIELDS] if dmaps else zero)]
-    sao = pic["sao_maps"][0] if pic["sao_maps"] else None
-    t = pic["alf_tables"]
-    alf = t["args"][:12] if t is not None and t["has_l"] else None
-    return x, dv, dh, sao, alf, pic["out"][:H * W].reshape(H, W)
 
 
 def full_chain_capture(pic: dict) -> dict:
@@ -211,7 +197,7 @@ def dryrun_multichip(n: int, device="cuda", stream: str = STREAM,
                   devices=sorted({str(d) for d in mesh.devices}))
 
     # ---- width-sharded luma chain, distinct pictures on 'gop' ----
-    args = [luma_chain_args(p) for p in pics]
+    args = [PS.luma_chain_args(p) for p in pics]
 
     def sig(a):
         x, dv, dh, sao, alf, _ = a
@@ -281,6 +267,34 @@ def dryrun_multichip(n: int, device="cuda", stream: str = STREAM,
     return report
 
 
+def live_decode(mesh, device="cuda", stream: str | None = None) -> dict:
+    """The product decoder, Decoder(device), under decode_mesh_ctx(mesh) on
+    `stream` (the first of LIVE_STREAMS in testdata/ by default); raises
+    unless every picture has a hash and every hash matches.  Returns the
+    stream, its pictures' count, the route of each picture's chain
+    (mesh.routes) and the decode's host seconds."""
+    if stream is None:
+        stream = next((s for s in LIVE_STREAMS
+                       if os.path.exists(os.path.join(TESTDATA, f"{s}.bit"))), None)
+        if stream is None:
+            raise FileNotFoundError(f"none of {LIVE_STREAMS} in {TESTDATA}")
+    data = read_stream(stream)
+    mesh.routes.clear()
+    t0 = time.perf_counter()
+    with decode_mesh_ctx(mesh):
+        dec = Decoder(device=device)
+        pics = dec.decode_stream(data)
+    secs = time.perf_counter() - t0
+    if not pics or len(dec.hash_results) != len(pics):
+        raise AssertionError(f"live decode of {stream}: {len(pics)} pictures, "
+                             f"{len(dec.hash_results)} hashes")
+    bad = [hr.poc for hr in dec.hash_results if not hr.ok]
+    if bad:
+        raise AssertionError(f"live sharded decode of {stream}: hash mismatch at "
+                             f"POC {bad} (n={mesh.size})")
+    return dict(stream=stream, pictures=len(pics), routes=list(mesh.routes), seconds=secs)
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     device = "cuda"
@@ -290,6 +304,7 @@ def main(argv=None) -> int:
         del argv[i:i + 2]
     for n in [int(a) for a in argv] or [2, 8]:
         print(dryrun_multichip(n, device=device), flush=True)
+        print(live_decode(codec_mesh(n, device=device), device), flush=True)
     print("MULTICHIP_OK")
     return 0
 

@@ -4,33 +4,42 @@ over a mesh of lanes.
 Counterpart of vtm_tpu/parallel/pic_shard.py:31-231.  On a (gop, tile)
 `CodecMesh` (parallel/mesh.py):
   - the whole-plane luma in-loop filter chain, width-sharded on 'tile'
-    with distinct pictures on 'gop': deblock VER with an 8-column halo and
-    the return of each lane's edge deltas to its neighbours, deblock HOR on
-    the transpose, SAO with a 1-column halo, ALF classification and
-    filtering with a 4-column halo;
+    with distinct pictures on 'gop' (`luma_picture` a picture): deblock
+    VER with an 8-column halo and the return of each lane's edge deltas to
+    its neighbours, deblock HOR on the transpose, SAO with a 1-column halo,
+    ALF classification and filtering with a 4-column halo;
   - the batched translational-MC tile kernel, its job axis split over every
     lane;
   - the full in-loop chain (LMCS, deblock, SAO, ALF / CC-ALF, every
-    component), gop-batched: each 'gop' lane runs distinct pictures.
+    component), gop-batched: each 'gop' lane runs distinct pictures;
+  - the live decode mesh's chain (`run_chain_on_mesh`, which
+    ops/filter_chain.py imports when a decode mesh is active): the luma
+    through `luma_picture`, the chroma on the home lane.
 The reference's `vmap` over the pictures of a lane is a loop here, and its
-ppermute halos are copies between lane tensors (`_halo_cols`).  Picture
-borders replicate edges as the single-device kernels do, so every lane's
-output equals its picture's single-lane result.
+ppermute halos are the halo kernels of parallel/mesh.py (`_halo_cols`,
+`add_halo_deltas`).  Picture borders replicate edges as the single-device
+kernels do, so every lane's output equals its picture's single-lane result.
 
-The arguments follow the reference's: numpy arrays (or tensors) of every
-picture, in the layout the reference's capture of a decode holds them.
+The dry-run functions take the reference's arguments: numpy arrays (or
+tensors) of every picture, in the layout the reference's capture of a
+decode holds them.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from vtm_tpu_torch.ops import alf_kernel as AK
 from vtm_tpu_torch.ops import deblock_kernel as DK
 from vtm_tpu_torch.ops import edge_pad
+from vtm_tpu_torch.ops import filter_chain as FC
 from vtm_tpu_torch.ops import sao_kernel as SK
 from vtm_tpu_torch.ops.filter_chain import chain_body, to_device
 from vtm_tpu_torch.ops.mc_kernel import mc_tiles
+from vtm_tpu_torch.parallel import mesh as MS
+
+LUMA_FIELDS = FC.DMAP_FIELDS[:7]
 
 
 def _t(a) -> torch.Tensor:
@@ -43,41 +52,99 @@ def _on(a: torch.Tensor, dev) -> torch.Tensor:
     return a.to(dev).contiguous()
 
 
-def _halo_cols(shards, h: int):
+def _halo_cols(shards, h: int, pad: int = 0):
     """Each lane's [H, Wl] shard extended by h columns from its width-axis
-    neighbours: [H, Wl + 2h]; the picture's left and right borders are
-    edge-replicated."""
-    n = len(shards)
-    out = []
-    for i, x in enumerate(shards):
-        left = (shards[i - 1][:, -h:].to(x.device) if i > 0
-                else x[:, :1].expand(-1, h))
-        right = (shards[i + 1][:, :h].to(x.device) if i < n - 1
-                 else x[:, -1:].expand(-1, h))
-        out.append(torch.cat([left, x, right], dim=1))
-    return out
+    neighbours, [H + 2 pad, Wl + 2h]: the picture's left and right borders
+    edge-replicated, then `pad` edge rows above and below (one
+    vtm_halo_gather launch a card for CUDA lanes)."""
+    return MS.halo_gather(shards, h, axis=1, wrap=False, pad=pad)
 
 
 def add_halo_deltas(shards, deltas, h: int):
     """Each lane's [H, Wl] shard plus its deltas [H, Wl + 2h] over its own
     columns and the deltas its width-axis neighbours computed for its first
-    and last h columns (their halo columns)."""
-    n = len(shards)
-    out = []
-    for i, x in enumerate(shards):
-        x = x + deltas[i][:, h:-h]
-        if i > 0:
-            x[:, :h] += deltas[i - 1][:, -h:].to(x.device)
-        if i < n - 1:
-            x[:, -h:] += deltas[i + 1][:, :h].to(x.device)
-        out.append(x)
-    return out
+    and last h columns (one vtm_halo_add_deltas launch a card for CUDA
+    lanes)."""
+    return MS.halo_add_deltas(shards, deltas, h)
 
 
 def _split_cols(a: torch.Tensor, n: int, devs, axis: int = -1):
     """a split into n equal parts along `axis`, part i on devs[i]."""
     w = a.shape[axis] // n
     return [_on(a.narrow(axis, i * w, w), d) for i, d in enumerate(devs)]
+
+
+def luma_picture(lanes, home, x, dv, dh, sao, alf, bd: int, keep_sao: bool = False):
+    """One picture's luma [H, W] through the width-sharded luma filter
+    chain over the tile lanes `lanes`: deblock VER with an 8-column halo and
+    each lane's edge deltas returned to its neighbours, deblock HOR
+    (column-local after the transpose), SAO with a 1-column halo, ALF
+    classification and filtering with a 4-column halo; a stage whose
+    argument is None is skipped.  x and the maps lie on any device and are
+    split here: dv (7 maps [H4, W4]); dh (7 maps [W4, H4], transposed); sao
+    (tmap, cmap [H, W], offs [nctu, 32], valid [H, W]); alf (cperm, lperm,
+    ctu_of [H4, W4], then o_rows, near, y_i, yd_i, yu_i, yu2_i, df, dl,
+    mult).  Returns the filtered luma on `home`, and the luma after SAO
+    there where `keep_sao` (CC-ALF reads it), else None."""
+    n = len(lanes)
+    xs = _split_cols(x, n, lanes)
+    if dv is not None:
+        dvs = list(zip(*(_split_cols(m, n, lanes) for m in dv)))
+        acc = [DK.luma_ver_delta(e, *m, bd) for e, m in
+               zip(_halo_cols(xs, 8), dvs)]
+        xs = add_halo_deltas(xs, acc, 8)
+    if dh is not None:
+        dhs = list(zip(*(_split_cols(m, n, lanes, axis=0) for m in dh)))
+        for i in range(n):
+            xt = xs[i].T
+            padh = edge_pad(xt, 0, 8)
+            xs[i] = (xt + DK.luma_ver_delta(padh, *dhs[i], bd)[:, 8:-8]).T.contiguous()
+    if sao is not None:
+        tmap, cmap, offs, valid = sao
+        parts = [_split_cols(m, n, lanes) for m in (tmap, cmap, valid)]
+        ext = _halo_cols(xs, 1, pad=1)
+        xs = [SK.sao_apply_ext(ext[i], parts[0][i], parts[1][i],
+                               _on(offs, lanes[i]), parts[2][i], bd)
+              for i in range(n)]
+    after_sao = _stitch(xs, home) if keep_sao else None
+    if alf is not None:
+        cperm, lperm, ctu_of, *rows = alf
+        ctus = _split_cols(ctu_of, n, lanes)
+        ext = _halo_cols(xs, 4, pad=AK.PAD)
+        for i, d in enumerate(lanes):
+            o_rows, near, *cls_rows = (_on(r, d) for r in rows)
+            cls, tr = AK.classify_picture(ext[i], *cls_rows, bit_depth=bd)
+            cp, lp = _on(cperm, d), _on(lperm, d)
+            gather = (ctus[i].long(), cls.long(), tr.long())
+            xs[i] = AK.alf_filter(ext[i], cp[gather], lp[gather], o_rows, near,
+                                  taps=AK.LUMA_TAPS, bit_depth=bd)
+    return _stitch(xs, home), after_sao
+
+
+def _stitch(xs, home) -> torch.Tensor:
+    """The lanes' [H, Wl] shards side by side on `home`."""
+    return torch.cat([a.to(home) for a in xs], dim=1)
+
+
+def luma_chain_args(pic: dict):
+    """The sharded luma chain's inputs of one captured picture
+    (multichip.capture_decode): (x, dv, dh (transposed), sao or None, alf
+    or None, luma_out); x is after the LMCS inverse mapping, as the chain's
+    deblocking sees it."""
+    x = np.asarray(pic["planes"][0], dtype=np.int32)
+    H, W = x.shape
+    if pic["lmcs_lut"] is not None:
+        x = np.asarray(pic["lmcs_lut"], dtype=np.int32)[x]
+    zero = [np.zeros((H // 4, W // 4), bool if f in ("l_active", "l_nop", "l_noq")
+                     else np.int32) for f in LUMA_FIELDS]
+    dmaps = pic["dmaps"]
+    dv = [getattr(dmaps[0], f) for f in LUMA_FIELDS] if dmaps else zero
+    dh = [np.ascontiguousarray(m.T) for m in
+          ([getattr(dmaps[1], f) for f in LUMA_FIELDS] if dmaps else zero)]
+    sao = pic["sao_maps"][0] if pic["sao_maps"] else None
+    t = pic["alf_tables"]
+    alf = t["args"][:12] if t is not None and t["has_l"] else None
+    return x, dv, dh, sao, alf, pic["out"][:H * W].reshape(H, W)
 
 
 def make_sharded_luma_filters(mesh, have_sao: bool, have_alf: bool, bd: int):
@@ -90,43 +157,7 @@ def make_sharded_luma_filters(mesh, have_sao: bool, have_alf: bool, bd: int):
       mult shared by all pictures) if have_alf;
     and returns the filtered [B, H, W] int32 on the first lane's device."""
     n = mesh.tile
-
-    def picture(lanes, x, dv, dh, sao, alf):
-        """One picture over the tile lanes `lanes`; x and the maps on the
-        host, split here."""
-        xs = _split_cols(x, n, lanes)
-        # deblock VER: 8-column halo, each lane's edge deltas returned
-        dvs = list(zip(*(_split_cols(m, n, lanes) for m in dv)))
-        acc = [DK.luma_ver_delta(e, *m, bd) for e, m in
-               zip(_halo_cols(xs, 8), dvs)]
-        xs = add_halo_deltas(xs, acc, 8)
-        # deblock HOR: column-local after the transpose
-        dhs = list(zip(*(_split_cols(m, n, lanes, axis=0) for m in dh)))
-        for i in range(n):
-            xt = xs[i].T
-            padh = edge_pad(xt, 0, 8)
-            xs[i] = (xt + DK.luma_ver_delta(padh, *dhs[i], bd)[:, 8:-8]).T.contiguous()
-        if sao is not None:
-            tmap, cmap, offs, valid = sao
-            parts = [_split_cols(m, n, lanes) for m in (tmap, cmap, valid)]
-            ext = _halo_cols(xs, 1)
-            xs = [SK.sao_apply_ext(edge_pad(ext[i], 1, 0), parts[0][i], parts[1][i],
-                                   _on(offs, lanes[i]), parts[2][i], bd)
-                  for i in range(n)]
-        if alf is not None:
-            cperm, lperm, ctu_of, *rows = alf
-            ctus = _split_cols(ctu_of, n, lanes)
-            ext = _halo_cols(xs, 4)
-            for i, d in enumerate(lanes):
-                p4 = edge_pad(ext[i], AK.PAD, 0)
-                o_rows, near, *cls_rows = (_on(r, d) for r in rows)
-                cls, tr = AK.classify_picture(p4, *cls_rows, bit_depth=bd)
-                cp, lp = _on(cperm, d), _on(lperm, d)
-                gather = (ctus[i].long(), cls.long(), tr.long())
-                xs[i] = AK.alf_filter(p4, cp[gather], lp[gather], o_rows, near,
-                                      taps=AK.LUMA_TAPS, bit_depth=bd)
-        home = mesh.devices[0]
-        return torch.cat([a.to(home) for a in xs], dim=1)
+    home = mesh.devices[0]
 
     def fn(x, dv, dh, *rest):
         rest = list(rest)
@@ -144,13 +175,58 @@ def make_sharded_luma_filters(mesh, have_sao: bool, have_alf: bool, bd: int):
         for b in range(B):
             g = b // per
             lanes = [mesh.lane(g, t) for t in range(n)]
-            out.append(picture(
-                lanes, x[b], [m[b] for m in dv], [m[b] for m in dh],
+            out.append(luma_picture(
+                lanes, home, x[b], [m[b] for m in dv], [m[b] for m in dh],
                 None if sao is None else [m[b] for m in sao],
-                None if alf is None else [m[b] for m in alf[:3]] + alf[3:]))
+                None if alf is None else [m[b] for m in alf[:3]] + alf[3:], bd)[0])
         return torch.stack(out)
 
     return fn
+
+
+def run_chain_on_mesh(mesh, planes, lmcs_lut, dmaps, sao_maps, alf_tables,
+                      bd: int, sx: int, sy: int, device, fl: tuple) -> torch.Tensor:
+    """One picture's in-loop chain under the live decode mesh (the
+    counterpart of vtm_tpu/ops/filter_chain.py:85-100, which width-shards
+    the whole chain over 'tile'); `fl` its stage flags (chain_flags), one
+    on at least.  Lane (0, 0), the home lane, must be the decoder's
+    device.  A picture whose width is a multiple of 8 x tile and that runs
+    a luma stage besides LMCS takes the sharded route: the LMCS inverse on
+    the home lane, then luma_picture over the 'tile' lanes of gop row 0,
+    then the chroma stages through chain_body on the home lane with the luma
+    flags off (fed the luma after SAO, which CC-ALF reads).  Any other
+    picture takes the whole chain on the home lane.  Raises ValueError
+    where mesh.check_home refuses the lanes.  Each call appends its
+    route to mesh.routes ({"size": (W, H), "route": "sharded" or "whole",
+    "lanes": n}).  Returns the packed [Y, Cb, Cr] output on the home
+    lane, laid out as run_filter_chain's."""
+    home = mesh.check_home(device)
+    (f_lmcs, dvl, dvcb, dvcr, dhl, dhcb, dhcr,
+     s0, s1, s2, a_l, a_cb, a_cr, a_cc1, a_cc2) = fl
+    H, W = planes[0].shape
+    n = mesh.tile
+    if W % (8 * n) or not (dvl or dhl or s0 or a_l):
+        mesh.routes.append(dict(size=(W, H), route="whole", lanes=1))
+        return FC.run_chain(planes, lmcs_lut, dmaps, sao_maps, alf_tables, bd, sx, sy,
+                            home, fl)
+    y, cb, cr, lut, dbv, dbh, sao, alf = FC.upload_chain(
+        planes, lmcs_lut, dmaps, sao_maps, alf_tables, home)
+    x = FC.lmcs_inverse(y, lut) if f_lmcs else y
+    lanes = [mesh.lane(0, t) for t in range(n)]
+    luma, after_sao = luma_picture(
+        lanes, home, x, dbv[:7] if dvl else None,
+        [m.T.contiguous() for m in dbh[:7]] if dhl else None,
+        sao[0] if s0 else None, alf[:12] if a_l else None, bd,
+        keep_sao=a_cc1 or a_cc2)
+    mesh.routes.append(dict(size=(W, H), route="sharded", lanes=n))
+    fc = (False, False, dvcb, dvcr, False, dhcb, dhcr,
+          False, s1, s2, False, a_cb, a_cr, a_cc1, a_cc2)
+    if any(fc):
+        chroma = chain_body(x if after_sao is None else after_sao, cb, cr, None,
+                            dbv, dbh, sao, alf, bd, sx, sy, fc)[H * W:]
+    else:
+        chroma = torch.cat([cb.reshape(-1), cr.reshape(-1)])
+    return torch.cat([luma.reshape(-1), chroma])
 
 
 def split_mc_jobs(cap, n_dev: int):
