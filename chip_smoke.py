@@ -12,7 +12,8 @@ PyTorch built for CUDA (no jax needed).  Phases, each fatal on failure:
    sm_90a, one process per source, in parallel), and print each compiled
    kernel's registers, stack frame, spill bytes and static shared bytes
    (ptxas -v; a template instantiation with its arguments), and the
-   deblocking tile kernels' launch shape (resident blocks an SM); an RMD
+   deblocking tile kernels' and the halo kernels' launch shape (resident
+   blocks an SM); an RMD
    kernel that spills, or an MC, ALF-filter, ALF-classifier, luma
    deblocking tile, FIR, DMVR-search, BDOF, RMD-reduction, register-tiled
    inverse transform, SATD, SAO or halo kernel with a stack frame or
@@ -206,7 +207,13 @@ samples each); sao.cu and common.cuh time the extended-plane SAO on the
 eight VER shards of each picture of the 1080p stream with luma SAO and of
 POC 0's luma with seeded maps (half the CTUs on), and the plane SAO on
 POC 0's Y, Cb and Cr (a plane without SAO in that picture with seeded
-maps).
+maps); halo.cu and common.cuh time the two halo kernels on phase 3's cases
+(the eight VER shards of 1080p POC 0 at h 8, h 1 pad 1 and h 4 pad 4, the
+VER deltas' return, the ring) and on every halo call of the live decode
+mesh (recorded), both builds given the same lane tables, then this
+checkout's halo.cu built with every launch forced to its row kernels and
+to its element kernels, on seeded shards of growing size (`halo
+crossover` lines).
 """
 
 from __future__ import annotations
@@ -220,6 +227,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TESTDATA = os.path.join(ROOT, "testdata")
@@ -311,8 +319,12 @@ NO_LOCAL_MEMORY = {
                      "inv_transform_tile_kernel", "dmvr_search_kernel",
                      "bdof_blend_kernel", "satd_batch_kernel", "sao_kernel",
                      "inv_transform_s8_kernel", "halo_gather_kernel",
-                     "halo_add_deltas_kernel"),
+                     "halo_add_deltas_kernel", "halo_gather_elem_kernel",
+                     "halo_add_deltas_elem_kernel"),
                     ("spill_stores", "spill_loads", "stack_frame"))}
+HALO_ENTRIES = ("vtm_halo_gather", "vtm_halo_add_deltas")
+HALO_KERNELS = ("halo_gather_kernel", "halo_add_deltas_kernel", "halo_gather_elem_kernel",
+                "halo_add_deltas_elem_kernel")
 # runs of each sharded stage whose host seconds are compared (median)
 REPEATS = 7
 TRANSFORM_KINDS = ((0, 0), (2, 1), (1, 2), (2, 2), (1, 1))
@@ -1280,17 +1292,20 @@ def check_rmd(torch, chk: KernelCheck, src, bd: int, label: str, timed: bool,
               flush=True)
 
 
-def build_other(KN, other: str, source: str, names) -> "ctypes.CDLL":
-    """`source` of directory `other` built into other/libversus_<stem>.so
-    with its entry points renamed versus_* (a build of another commit beside
-    this checkout's library); prints its ptxas lines."""
+def build_other(KN, other: str, source: str, names, defines=(), tag: str | None = None
+                ) -> "ctypes.CDLL":
+    """`source` of directory `other` (a path relative to it) built into
+    other/libversus_<tag or stem>.so with its entry points renamed versus_*
+    and `defines` (NAME=VALUE) set (a build of another commit beside this
+    checkout's library); prints its ptxas lines."""
     import ctypes
 
-    stem = source.split(".")[0]
+    stem = tag or os.path.basename(source).split(".")[0]
     lib_path = os.path.join(other, f"libversus_{stem}.so")
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     res = subprocess.run([nvcc, *KN.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
-                          *(f"-D{n}=versus_{n[4:]}" for n in names), "-o", lib_path,
+                          *(f"-D{n}=versus_{n[4:]}" for n in names),
+                          *(f"-D{d}" for d in defines), "-o", lib_path,
                           os.path.join(other, source)],
                          capture_output=True, text=True)
     if res.returncode:
@@ -1316,7 +1331,7 @@ def versus(torch, other: str) -> int:
     """This checkout's kernels against another commit's build of the same
     sources in directory `other`, in one process on one card: the kernels
     of each of rmd.cu, deblock.cu, mc.cu, alf.cu, refine.cu, transform.cu,
-    rdcost.cu and sao.cu that `other` holds."""
+    rdcost.cu, sao.cu and halo.cu that `other` holds."""
     from vtm_tpu_torch import kernels as KN
 
     print(card_line(), flush=True)
@@ -1325,7 +1340,7 @@ def versus(torch, other: str) -> int:
     runs = {"rmd.cu": versus_rmd, "deblock.cu": versus_deblock, "mc.cu": versus_mc,
             "alf.cu": versus_alf, "refine.cu": versus_refine,
             "transform.cu": versus_transform, "rdcost.cu": versus_satd,
-            "sao.cu": versus_sao}
+            "sao.cu": versus_sao, "halo.cu": versus_halo}
     ran = [src for src in runs if os.path.exists(os.path.join(other, src))]
     if not ran:
         raise FileNotFoundError(f"{other} holds none of {', '.join(runs)}")
@@ -1335,12 +1350,12 @@ def versus(torch, other: str) -> int:
     return 0
 
 
-def other_entries(KN, other: str, source: str, names):
+def other_entries(KN, other: str, source: str, names, defines=(), tag: str | None = None):
     """The renamed entry points `names` of `other`'s build of `source`, with
     this checkout's ctypes signatures."""
     import ctypes
 
-    lib = build_other(KN, other, source, names)
+    lib = build_other(KN, other, source, names, defines, tag)
     fns = []
     for n in names:
         fn = getattr(lib, f"versus_{n[4:]}")
@@ -1767,7 +1782,7 @@ def versus_deblock(torch, KN, other: str) -> None:
 
     lib, _ = other_entries(KN, other, "deblock.cu", (
         "vtm_deblock_luma_ver", "vtm_deblock_chroma_ver", "vtm_deblock_luma_ver_delta"))
-    for name, cfg in DK.kernel_config().items():
+    for name, cfg in (DK.kernel_config() | halo_config(KN)).items():
         print(f"  launch shape {name}: {cfg}", flush=True)
 
     dev = torch.device("cuda")
@@ -1973,6 +1988,147 @@ def versus_sao(torch, KN, other: str) -> None:
     versus_sums(sums, "Y + Cb + Cr")
 
 
+def launch_through(torch, KN, fns: dict, call):
+    """call(), with its KN.launch of each entry in `fns` sent to that
+    function (another build's, from other_entries) on the device's current
+    stream; returns what call() returns.  The other build gets the tables
+    this checkout's wrappers pack."""
+    real = KN.launch
+
+    def launch(name, device, *args):
+        with torch.cuda.device(device):
+            err = fns[name](*args, torch.cuda.current_stream(device).cuda_stream)
+        if err:
+            raise RuntimeError(f"the other build's {name}: CUDA error {err}")
+
+    KN.launch = launch
+    try:
+        return call()
+    finally:
+        KN.launch = real
+
+
+def record_live_halo(torch, KN) -> list:
+    """The halo calls of the live decode mesh (codec_mesh(4, gop=2), lanes
+    sharing the card) on LIVE_STREAMS, recorded by LiveRecorder: (kernel,
+    shape, cuda fn, plain fn, args, kwargs, launches) each."""
+    from vtm_tpu_torch.decoder.declib import Decoder
+    from vtm_tpu_torch.ops import alf_kernel as AK
+    from vtm_tpu_torch.ops import deblock_kernel as DK
+    from vtm_tpu_torch.ops import mc_kernel as MK
+    from vtm_tpu_torch.ops import sao_kernel as SK
+    from vtm_tpu_torch.parallel import mesh as MS
+    from vtm_tpu_torch.parallel import pic_shard as PS
+
+    mesh = MS.codec_mesh(4, gop=2, device="cuda")
+    rec = LiveRecorder(torch, KN, dict(DK=DK, SK=SK, AK=AK, MS=MS, MK=MK, PS=PS))
+    try:
+        for name in LIVE_STREAMS:
+            with MS.decode_mesh_ctx(mesh):
+                dec = Decoder(device="cuda")
+                pics = dec.decode_stream(read_stream(name))
+            if not all(hr.ok for hr in dec.hash_results) or len(dec.hash_results) != len(pics):
+                raise AssertionError(f"live mesh {name}: a picture's hash failed")
+    finally:
+        rec.close()
+    return [c for c in rec.calls if c[0] in HALO_ENTRIES]
+
+
+def versus_halo(torch, KN, other: str) -> None:
+    """vtm_halo_gather and vtm_halo_add_deltas against the build of another
+    halo.cu (with its common.cuh) in `other`, in turns, both builds given
+    the same lane tables (launch_through): phase 3's cases (halo_cases: the
+    eight VER shards of 1080p POC 0 at h 8, h 1 pad 1, h 4 pad 4, the VER
+    deltas' return, and the ring), then every halo call of the live decode
+    mesh (record_live_halo), a row a call at its `live shard WxH`; a
+    `versus sum` line a kernel for each set and live shard shape."""
+    from vtm_tpu_torch.parallel import multichip as MCH
+
+    _, fns = other_entries(KN, other, "halo.cu", HALO_ENTRIES)
+    fns = dict(zip(HALO_ENTRIES, fns))
+    for name, cfg in halo_config(KN).items():
+        print(f"  launch shape {name}: {cfg}", flush=True)
+    dev = torch.device("cuda")
+
+    def row(kernel, label, fn, ins, sums):
+        theirs = []
+
+        def other_fn():
+            theirs[:] = launch_through(torch, KN, fns, fn)
+            return 0
+
+        versus_row(torch, other, kernel, label, other_fn, fn, theirs, ins, sums)
+
+    pic = MCH.capture_decode(HD_STREAM, "cuda")["pics"][0]
+    sums = {}
+    for c in halo_cases(torch, pic, dev):
+        row(c["kernel"], c["label"], c["cuda"], c["ins"], sums)
+    versus_sums(sums, "1080p POC 0: 8 VER shards at h 8, 1, 4, the delta return; the ring")
+    by_shape = {}
+    for i, (kernel, shape, real, _, args, kw, _) in enumerate(record_live_halo(torch, KN)):
+        ins, _ = live_cost(kernel, args, kw)
+        row(kernel, f"{shape} call {i}", partial(real, *args, **kw), ins,
+            by_shape.setdefault(shape, {}))
+    for shape, sums in sorted(by_shape.items()):
+        versus_sums(sums, f"the live mesh's calls at {shape}")
+    halo_crossover(torch, KN, other)
+
+
+# (lanes, rows, len) of halo_crossover's seeded shards
+CROSSOVER_SHARDS = ((2, 120, 104), (2, 240, 208), (2, 360, 312), (2, 480, 416),
+                    (2, 600, 520), (2, 720, 624), (2, 1080, 960), (4, 540, 240),
+                    (4, 1080, 480), (8, 1080, 240))
+
+
+def halo_crossover(torch, KN, out_dir: str) -> None:
+    """Where csrc/halo.cu's launches switch from the element kernels to the
+    row kernels (HALO_ELEM_MAX output elements): this checkout's halo.cu
+    built twice into `out_dir`, every launch forced to the row kernels and
+    every launch forced to the element kernels, both held equal to this
+    build and timed (device us) on seeded shards of growing size
+    (CROSSOVER_SHARDS): the gather at h 8 and at h 1 pad 1, the delta
+    return at h 8; a line a case with the output elements and this build's
+    time."""
+    from vtm_tpu_torch.parallel import mesh as MS
+
+    src = os.path.relpath(os.path.join(KN.CSRC, "halo.cu"), out_dir)
+    builds = {}
+    for what, elem_max in (("rows", 0), ("elements", 1 << 30)):
+        _, fns = other_entries(KN, out_dir, src, HALO_ENTRIES,
+                               defines=(f"HALO_ELEM_MAX={elem_max}",), tag=f"halo_{what}")
+        builds[what] = dict(zip(HALO_ENTRIES, fns))
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def seeded(*shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32, device="cuda",
+                             generator=g)
+
+    for n, rows, ln in CROSSOVER_SHARDS:
+        xs = [seeded(rows, ln) for _ in range(n)]
+        ds = [seeded(rows, ln + 16) for _ in range(n)]
+        for label, elems, fn in (
+                ("gather h 8", n * rows * (ln + 16), partial(MS.halo_gather_cuda, xs, 8)),
+                ("gather h 1 pad 1", n * (rows + 2) * (ln + 2),
+                 partial(MS.halo_gather_cuda, xs, 1, pad=1)),
+                ("delta h 8", n * rows * ln, partial(MS.halo_add_deltas_cuda, xs, ds, 8))):
+            want = fn()
+            times = {}
+            for what, fns in builds.items():
+                call = partial(launch_through, torch, KN, fns, fn)
+                if not all_equal(torch, call(), want):
+                    raise AssertionError(f"halo crossover {what} build, {label}: outputs differ")
+                ms, paced = device_ms(torch, call)
+                if paced:
+                    raise AssertionError(f"halo crossover timing {paced}")
+                times[what] = ms * 1e3
+            ms, paced = device_ms(torch, fn)
+            if paced:
+                raise AssertionError(f"halo crossover timing {paced}")
+            print(f"halo crossover {n} lanes {rows}x{ln}, {label}: {elems} output elements, "
+                  f"rows {times['rows']:.3f} us, elements {times['elements']:.3f} us, "
+                  f"this build {ms * 1e3:.3f} us (outputs equal)", flush=True)
+
+
 def check_transforms(torch, chk: KernelCheck, dev, seed: int = 17):
     """Both inverse transform kernels against the plain version, and against
     each other, on numpy-seeded int16-range coefficients: for every block
@@ -2164,20 +2320,15 @@ def all_equal(torch, got, want) -> bool:
     return all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
 
 
-def check_halo_kernels(torch, chk: KernelCheck, pic: dict, dev, lanes: int = 8) -> None:
-    """The two halo kernels against their plain versions on the `lanes`
-    VER shards of a captured picture's luma (as the chain's deblocking sees
-    it), timed at shape "shard" (the dry run's sharded luma chain): the
-    gather with h = 8 (the deblocking), 1 with one edge row (SAO) and 4 with
-    four (ALF), and the return of the VER deltas; each row's library column
-    is the torch.cat (+ edge_pad, or slices and +=) calls they replace, the
-    plain versions, timed the same way.  Then the ring of
-    mesh.halo_exchange on the shards transposed, 8 rows a side (no path
-    launches it), beside its bytes bound.  A gather's bytes bound counts
-    each shard read once and each extended shard written once: a halo
-    strip lies inside a neighbour's shard, already counted.  The delta
-    return's counts its neighbours' edge deltas besides (delta_bytes),
-    which lie outside the centres it reads."""
+def halo_cases(torch, pic: dict, dev, lanes: int = 8) -> list:
+    """The two halo kernels' phase-3 cases on the `lanes` VER shards of a
+    captured picture's luma (as the chain's deblocking sees it): dicts of
+    kernel, label, cuda and plain (calls of no arguments), ins (what the
+    bytes bound counts besides the output) and shape.  The gather with h 8
+    (the deblocking), 1 with one edge row (SAO) and 4 with four (ALF), and
+    the return of the VER deltas, at shape "shard" (the dry run's sharded
+    luma chain); last the ring of mesh.halo_exchange on the shards
+    transposed, 8 rows a side (no path launches it)."""
     from vtm_tpu_torch.ops import alf_kernel as AK
     from vtm_tpu_torch.ops import deblock_kernel as DK
     from vtm_tpu_torch.parallel import mesh as MS
@@ -2188,40 +2339,56 @@ def check_halo_kernels(torch, chk: KernelCheck, pic: dict, dev, lanes: int = 8) 
     devs = [dev] * lanes
     xs = PS._split_cols(PS._t(x), lanes, devs)
     tag = f"{lanes} VER shards {tuple(xs[0].shape)} of 1080p POC 0"
+    cases = []
     for h, pad, what in ((8, 0, "deblocking"), (1, 1, "SAO"), (4, AK.PAD, "ALF")):
         kw = dict(h=h, axis=1, wrap=False, pad=pad)
-        chk.compare("vtm_halo_gather", f"{tag}, h {h}, pad {pad} ({what})",
-                    lambda: MS.halo_gather_cuda(xs, **kw),
-                    lambda: MS.halo_gather_plain(xs, **kw), timed=True,
-                    ins=(xs,), shape="shard",
-                    library=(lambda: MS.halo_gather_plain(xs, **kw),
-                             lambda a, b: all_equal(torch, a, b)))
+        cases.append(dict(kernel="vtm_halo_gather", label=f"{tag}, h {h}, pad {pad} ({what})",
+                          cuda=partial(MS.halo_gather_cuda, xs, **kw),
+                          plain=partial(MS.halo_gather_plain, xs, **kw), ins=(xs,),
+                          shape="shard"))
     dvs = zip(*(PS._split_cols(PS._t(m), lanes, devs) for m in dv))
     acc = [DK.luma_ver_delta_cuda(e, *m, bd)
            for e, m in zip(MS.halo_gather_cuda(xs, 8), dvs)]
-    chk.compare("vtm_halo_add_deltas", f"{tag}, h 8 (the VER deltas' return)",
-                lambda: MS.halo_add_deltas_cuda(xs, acc, 8),
-                lambda: MS.halo_add_deltas_plain(xs, acc, 8), timed=True,
-                ins=(xs, delta_bytes(xs, 8)), shape="shard",
-                library=(lambda: MS.halo_add_deltas_plain(xs, acc, 8),
-                         lambda a, b: all_equal(torch, a, b)))
+    cases.append(dict(kernel="vtm_halo_add_deltas", label=f"{tag}, h 8 (the VER deltas' return)",
+                      cuda=partial(MS.halo_add_deltas_cuda, xs, acc, 8),
+                      plain=partial(MS.halo_add_deltas_plain, xs, acc, 8),
+                      ins=(xs, delta_bytes(xs, 8)), shape="shard"))
+    shards = [t.T.contiguous() for t in xs]
+    kw = dict(h=8, axis=0, wrap=True)
+    cases.append(dict(kernel="vtm_halo_gather",
+                      label=f"{lanes} shards {tuple(shards[0].shape)} transposed, ring, 8 rows "
+                            "a side (mesh.halo_exchange)",
+                      cuda=partial(MS.halo_gather_cuda, shards, **kw),
+                      plain=partial(MS.halo_gather_plain, shards, **kw), ins=(shards,),
+                      shape=None))
+    return cases
+
+
+def check_halo_kernels(torch, chk: KernelCheck, pic: dict, dev, lanes: int = 8) -> None:
+    """The two halo kernels against their plain versions on halo_cases,
+    timed; each row's library column is the torch.cat (+ edge_pad, or
+    slices and +=) calls they replace, the plain versions, timed the same
+    way.  The ring is also held to the neighbours' rows and printed beside
+    its bytes bound.  A gather's bytes bound counts each shard read once and
+    each extended shard written once: a halo strip lies inside a
+    neighbour's shard, already counted.  The delta return's counts its
+    neighbours' edge deltas besides (delta_bytes), which lie outside the
+    centres it reads."""
+    from vtm_tpu_torch.parallel import mesh as MS
+
+    cases = halo_cases(torch, pic, dev, lanes)
     # the ring: each lane's transposed shard extended by 8 rows of each
     # neighbour, the wrap at the ends
     halo = 8
-    shards = [t.T.contiguous() for t in xs]
-    out = MS.halo_exchange(shards, halo)
-    for i, (t, e) in enumerate(zip(shards, out)):
+    shards = cases[-1]["ins"][0]
+    for i, (t, e) in enumerate(zip(shards, MS.halo_exchange(shards, halo))):
         want = torch.cat([shards[i - 1][-halo:], t, shards[(i + 1) % lanes][:halo]])
         if not torch.equal(e, want):
             raise AssertionError(f"halo_exchange: lane {i} != its neighbours' rows")
-    kw = dict(h=halo, axis=0, wrap=True)
-    chk.compare("vtm_halo_gather", f"{lanes} shards {tuple(shards[0].shape)} transposed, "
-                f"ring, {halo} rows a side (mesh.halo_exchange)",
-                lambda: MS.halo_gather_cuda(shards, **kw),
-                lambda: MS.halo_gather_plain(shards, **kw), timed=True,
-                ins=(shards,),
-                library=(lambda: MS.halo_gather_plain(shards, **kw),
-                         lambda a, b: all_equal(torch, a, b)))
+    for c in cases:
+        chk.compare(c["kernel"], c["label"], c["cuda"], c["plain"], timed=True,
+                    ins=c["ins"], shape=c["shape"],
+                    library=(c["plain"], lambda a, b: all_equal(torch, a, b)))
     last = chk.last
     bound = last["bytes"] / BYTES_PER_S * 1e3
     floors = "; ".join(f"{k} {v:.6f} ms" for k, v in chk.floors.items()
@@ -2232,6 +2399,27 @@ def check_halo_kernels(torch, chk: KernelCheck, pic: dict, dev, lanes: int = 8) 
           f"once, extended shards written once), bound {bound:.6f} ms "
           f"(bytes), {100 * bound / last['ms']:.2f} % of bound; shard floors: {floors}",
           flush=True)
+
+
+def halo_config(KN) -> dict:
+    """The launch shape of csrc/halo.cu's kernels on the current card (the
+    row kernels and the element kernels of small launches;
+    vtm_halo_config: threads, static shared bytes, registers, resident CTAs
+    an SM, local bytes), as DK.kernel_config gives the deblocking tiles'."""
+    import ctypes
+
+    from vtm_tpu_torch.ops.deblock_kernel import CONFIG_FIELDS
+
+    fn = KN.library().vtm_halo_config
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n = len(CONFIG_FIELDS)
+    buf = (ctypes.c_int * (n * len(HALO_KERNELS)))()
+    err = fn(ctypes.cast(buf, ctypes.c_void_p))
+    if err:
+        raise RuntimeError(f"vtm_halo_config: CUDA error {err}")
+    return {k: dict(zip(CONFIG_FIELDS, buf[i * n:(i + 1) * n]))
+            for i, k in enumerate(HALO_KERNELS)}
 
 
 def mesh_inputs(torch, dev) -> dict:
@@ -3172,7 +3360,7 @@ def main() -> int:
            if any(r.get(k) for k in NO_LOCAL_MEMORY.get(n.split("<")[0], ()))]
     if bad:
         raise AssertionError(f"kernels with spills or a stack frame: {bad}")
-    for name, cfg in DK.kernel_config().items():
+    for name, cfg in (DK.kernel_config() | halo_config(KN)).items():
         print(f"  launch shape {name}: {cfg}", flush=True)
 
     # 3. kernels against their plain versions

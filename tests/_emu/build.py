@@ -61,7 +61,7 @@ def translate(src: str) -> str:
     return src.replace("asm volatile(", "emu_asm(")
 
 
-def build(out_dir: str, names=None) -> str:
+def build(out_dir: str, names=None, defines=()) -> str:
     os.makedirs(out_dir, exist_ok=True)
     names = names or sorted(f for f in os.listdir(CSRC) if f.endswith(".cu"))
     gen = os.path.join(out_dir, "src")
@@ -78,7 +78,7 @@ def build(out_dir: str, names=None) -> str:
             fh.write(text)
     lib = os.path.join(out_dir, "libvtm_emu.so")
     cmd = ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-           "-x", "c++", f"-I{HERE}", "-o", lib,
+           "-x", "c++", f"-I{HERE}", *(f"-D{d}" for d in defines), "-o", lib,
            *(os.path.join(gen, n) for n in names), "-lpthread"]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
@@ -86,12 +86,13 @@ def build(out_dir: str, names=None) -> str:
     return lib
 
 
-def load(out_dir: str, names=None) -> ctypes.CDLL:
-    """Build, then load the library with the entry points' argument types
-    (those of vtm_tpu_torch.kernels)."""
+def load(out_dir: str, names=None, defines=()) -> ctypes.CDLL:
+    """Build (with `defines`, NAME=VALUE strings passed as -D), then load the
+    library with the entry points' argument types (those of
+    vtm_tpu_torch.kernels)."""
     from vtm_tpu_torch import kernels
 
-    lib = ctypes.CDLL(build(out_dir, names))
+    lib = ctypes.CDLL(build(out_dir, names, defines))
     for name, argtypes in kernels._SIGNATURES.items():
         if hasattr(lib, name):
             fn = getattr(lib, name)

@@ -30,7 +30,11 @@ walking several groups, ragged last groups) beside its general kernel
 epilogue; and the halo kernels (every lane of a card in one launch, the
 lanes' pointers by value: the ring and the edge-replicated borders along
 rows and columns, edge padding across, ragged shard widths, and a delta
-return whose edges overlap).  The deblocking kernels' precondition, disjoint luma filter
+return whose edges overlap), the row kernels (the warp's realign by
+shuffles, rows at every word offset, shards and deltas 4, 8 or 12 bytes
+off a 16-byte boundary, neighbours read from strips with their own stride
+and offset, halo runs over 32 elements) and the element kernels that
+small launches take.  The deblocking kernels' precondition, disjoint luma filter
 extents, is checked in linear time (tests/_deblock_maps.py), held to the
 pairwise check here.  Tolerance 0.
 """
@@ -69,9 +73,33 @@ def lib(tmp_path_factory):
         pytest.skip("the CPU emulation of the CUDA sources needs g++")
     from _emu import build
 
+    # HALO_ELEM_MAX=0: every halo launch takes the row kernels (csrc/halo.cu
+    # runs launches of few elements through its element kernels, which
+    # halo_elem_lib's build, at the default threshold, holds)
     return build.load(str(tmp_path_factory.mktemp("emu")),
                       ["rdcost.cu", "rmd.cu", "deblock.cu", "mc.cu", "alf.cu",
-                       "refine.cu", "transform.cu", "sao.cu", "halo.cu"])
+                       "refine.cu", "transform.cu", "sao.cu", "halo.cu"],
+                      defines=["HALO_ELEM_MAX=0"])
+
+
+@pytest.fixture(scope="module")
+def halo_elem_lib(tmp_path_factory):
+    """csrc/halo.cu alone at its default threshold: the tests' small
+    launches take the element kernels."""
+    if shutil.which("g++") is None:
+        pytest.skip("the CPU emulation of the CUDA sources needs g++")
+    from _emu import build
+
+    return build.load(str(tmp_path_factory.mktemp("emu_halo")), ["halo.cu"])
+
+
+def _launch_into(monkeypatch, lib):
+    """The wrappers' launches go to `lib` (CPU tensors)."""
+    def launch(name, device, *args):
+        err = getattr(lib, name)(*args, None)
+        if err:
+            raise RuntimeError(f"{name}: error {err}")
+    monkeypatch.setattr(KN, "launch", launch)
 
 
 def test_satd_batch(lib):
@@ -279,11 +307,7 @@ DB_H, DB_W = 136, 200
 @pytest.fixture
 def emu_launch(lib, monkeypatch):
     """The wrappers' launches go to the emulated library (CPU tensors)."""
-    def launch(name, device, *args):
-        err = getattr(lib, name)(*args, None)
-        if err:
-            raise RuntimeError(f"{name}: error {err}")
-    monkeypatch.setattr(KN, "launch", launch)
+    _launch_into(monkeypatch, lib)
 
 
 def _deblock_maps(rng, bd, hor, shift):
@@ -870,7 +894,13 @@ def test_recon_sse(emu_launch):
 
 # ---------------------------------------------------------------------------
 # the halo kernels (csrc/halo.cu): a lane's shard is 2 x 32 + 5 wide along
-# its split axis (two blocks and a ragged third), or ragged per lane
+# its split axis (two blocks and a ragged third), or ragged per lane; then
+# the cases the row design branches on: lengths at every remainder mod 4
+# (rows of the extended shard at every word offset), h 1, 4, 8 and pad 0,
+# 1, 4, shards and deltas 4, 8 or 12 bytes off a 16-byte boundary, a
+# neighbour read from a strip with its own stride and offset (as
+# mesh._source copies one from another card), shards narrower than 2h,
+# and halo runs over 32 elements (h or pad above 32)
 
 
 def _halo_shards(rng, n, h, axis, ragged):
@@ -881,34 +911,140 @@ def _halo_shards(rng, n, h, axis, ragged):
                              .astype(np.int32)) for ln in lens]
 
 
-@pytest.mark.parametrize("wrap,pad", [(False, 0), (False, 1), (False, 4), (True, 0),
-                                      (True, 2)])
-@pytest.mark.parametrize("axis", [0, 1])
-@pytest.mark.parametrize("n,h,ragged", [(2, 1, False), (3, 4, True), (5, 8, False),
-                                        (8, 4, True)])
-def test_halo_gather(emu_launch, n, h, ragged, axis, wrap, pad):
+def _at_offset(a, words):
+    """`a` as a contiguous int32 tensor whose data starts `words` words past
+    the start of its storage (4 * words bytes off a 16-byte boundary)."""
+    buf = torch.empty(a.size + words, dtype=torch.int32)
+    x = buf[words:].view(a.shape)
+    x.copy_(torch.from_numpy(a))
+    return x
+
+
+def _strip_source(wide):
+    """mesh._source as it reads a neighbour on another card: from a copy of
+    its strip alone; `wide` puts that copy inside a larger buffer (2 rows or
+    columns before it, 1 after, the buffer 1 word off 16 bytes), so the
+    kernel reads it with its own row stride and offset."""
+    def source(t, axis, start, h, dev, keep):
+        strip = t.narrow(axis, start, h)
+        if not wide:
+            strip = strip.contiguous()
+            keep.append(strip)
+            return strip.data_ptr(), strip.shape[1], 0
+        shape = list(strip.shape)
+        shape[axis] += 3
+        buf = _at_offset(np.full(shape, 7, np.int32), 1)
+        buf.narrow(axis, 2, h).copy_(strip)
+        keep.append(buf)
+        return buf.data_ptr(), buf.shape[1], 2
+    return source
+
+
+def _layout_shards(rng, lens, across, axis, offsets):
+    return [_at_offset(rng.integers(-2**31, 2**31 - 1, (across, ln) if axis == 1
+                                    else (ln, across), dtype=np.int64).astype(np.int32),
+                       off) for ln, off in zip(lens, offsets)]
+
+
+# (lens, across, word offsets of the shards, strip) of a layout case
+_GATHER_LAYOUTS = [
+    # split columns (the chain's VER shards): len % 4 = 0, 1, 2, 3
+    ((8, 9, 10, 11), 3, 1, (0, 1, 2, 3), None),
+    ((9, 10, 11, 8), 3, 1, (1, 2, 3, 0), "strip"),
+    ((10, 11, 8, 9), 2, 4, (2, 3, 0, 1), "wide"),
+    ((11, 8, 9, 10), 2, 4, (3, 0, 1, 2), None),
+    ((8, 13, 10), 2, 8, (3, 2, 1), "strip"),
+    ((9, 14, 11), 2, 8, (0, 3, 2), "wide"),
+    # split rows (the ring, and SAO / ALF's pad columns): across % 4 = 0-3
+    ((4, 9), 8, 1, (1, 3), None),
+    ((5, 6), 9, 4, (2, 0), "strip"),
+    ((8, 10), 10, 8, (3, 1), "wide"),
+    ((9, 3), 11, 1, (0, 2), "wide"),
+    # runs of halo elements over 32 (read where they are stored)
+    ((33, 35), 2, 33, (1, 2), "strip"),
+    ((4, 5), 3, 1, (3, 0), None),
+]
+_GATHER_CASES = [
+    pytest.param(n, h, ragged, axis, wrap, pad, None, "rows",
+                 id=f"{n}-{h}-{ragged}-{axis}-{wrap}-{pad}")
+    for wrap, pad in [(False, 0), (False, 1), (False, 4), (True, 0), (True, 2)]
+    for axis in [0, 1]
+    for n, h, ragged in [(2, 1, False), (3, 4, True), (5, 8, False), (8, 4, True)]
+] + [
+    pytest.param(len(lens), h, True, axis, wrap, pad, (lens, across, offs, strip), path,
+                 id=f"layout-axis{axis}-h{h}-pad{pad}-len{'.'.join(map(str, lens))}-"
+                    f"across{across}-off{''.join(map(str, offs))}-{strip}-wrap{wrap}"
+                    f"{'-elem' if path == 'elem' else ''}")
+    for path in ("rows", "elem")
+    for (lens, across, h, offs, strip), axis, pad, wrap in zip(
+        _GATHER_LAYOUTS, [1] * 6 + [0] * 4 + [1, 0],
+        [0, 1, 4, 1, 0, 4, 0, 1, 4, 4, 0, 33], [False, False, False, True, False, True,
+                                                True, False, True, False, False, True])
+]
+
+
+@pytest.mark.parametrize("n,h,ragged,axis,wrap,pad,layout,path", _GATHER_CASES)
+def test_halo_gather(emu_launch, request, monkeypatch, n, h, ragged, axis, wrap, pad, layout,
+                     path):
     """vtm_halo_gather through halo_gather_cuda against halo_gather_plain:
-    every lane in one launch, each extended shard written whole."""
+    every lane in one launch, each extended shard written whole; by the row
+    kernel, or (`path` "elem") by the element kernel of small launches."""
+    if path == "elem":
+        _launch_into(monkeypatch, request.getfixturevalue("halo_elem_lib"))
     rng = np.random.default_rng(160 + 7 * n + h + axis + 2 * pad + wrap)
-    shards = _halo_shards(rng, n, h, axis, ragged)
+    if layout is None:
+        shards = _halo_shards(rng, n, h, axis, ragged)
+    else:
+        lens, across, offsets, strip = layout
+        shards = _layout_shards(rng, lens, across, axis, offsets)
+        if strip:
+            monkeypatch.setattr(MS, "_source", _strip_source(strip == "wide"))
     got = MS.halo_gather_cuda(shards, h, axis=axis, wrap=wrap, pad=pad)
     want = MS.halo_gather_plain(shards, h, axis=axis, wrap=wrap, pad=pad)
     for g, w in zip(got, want, strict=True):
         np.testing.assert_array_equal(g.numpy(), w.numpy())
 
 
-@pytest.mark.parametrize("h,lens", [(1, (3, 1, 2)), (4, (37, 5, 4, 69)),
-                                    (8, (8, 12, 15, 40, 9, 16, 33, 8))])
-def test_halo_add_deltas(emu_launch, h, lens):
+_DELTA_CASES = [
+    pytest.param(h, lens, None, None, "rows", id=f"{h}-lens{k}")
+    for k, (h, lens) in enumerate([(1, (3, 1, 2)), (4, (37, 5, 4, 69)),
+                                   (8, (8, 12, 15, 40, 9, 16, 33, 8))])
+] + [
+    pytest.param(h, lens, offs, strip, path,
+                 id=f"layout-h{h}-len{'.'.join(map(str, lens))}-"
+                    f"off{''.join(map(str, offs))}-{strip}{'-elem' if path == 'elem' else ''}")
+    for path in ("rows", "elem")
+    for h, lens, offs, strip in [
+        (1, (4, 5, 6, 7), (1, 2, 3, 0), None),
+        (4, (9, 10, 11, 8), (2, 3, 0, 1), "strip"),
+        (8, (8, 11, 16, 15), (3, 0, 1, 2), "wide"),
+        (8, (36, 33, 9), (0, 1, 3), None),
+        (4, (7, 4, 6), (3, 2, 1), "wide"),
+        (33, (33, 40), (1, 3), "strip"),
+    ]
+]
+
+
+@pytest.mark.parametrize("h,lens,offsets,strip,path", _DELTA_CASES)
+def test_halo_add_deltas(emu_launch, request, monkeypatch, h, lens, offsets, strip, path):
     """vtm_halo_add_deltas through halo_add_deltas_cuda against
     halo_add_deltas_plain: ragged widths, shards narrower than 2h (the
-    deltas from both neighbours land on one column), int32 wrap."""
-    rng = np.random.default_rng(170 + h)
-    rows = 13
-    xs = [torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (rows, ln), dtype=np.int64)
-                           .astype(np.int32)) for ln in lens]
-    ds = [torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (rows, ln + 2 * h),
-                                        dtype=np.int64).astype(np.int32)) for ln in lens]
+    deltas from both neighbours land on one column), int32 wrap; shards and
+    deltas off 16-byte boundaries (`offsets`: a lane's shard that many
+    words off, its deltas one more) and neighbours' deltas from strips; by
+    the row kernel, or (`path` "elem") the element kernel of small
+    launches."""
+    if path == "elem":
+        _launch_into(monkeypatch, request.getfixturevalue("halo_elem_lib"))
+    rng = np.random.default_rng(170 + h + len(lens))
+    rows = 13 if offsets is None else 3
+    offsets = offsets or (0,) * len(lens)
+    if strip:
+        monkeypatch.setattr(MS, "_source", _strip_source(strip == "wide"))
+    xs = [_at_offset(rng.integers(-2**31, 2**31 - 1, (rows, ln), dtype=np.int64)
+                     .astype(np.int32), off) for ln, off in zip(lens, offsets)]
+    ds = [_at_offset(rng.integers(-2**31, 2**31 - 1, (rows, ln + 2 * h), dtype=np.int64)
+                     .astype(np.int32), (off + 1) % 4) for ln, off in zip(lens, offsets)]
     got = MS.halo_add_deltas_cuda(xs, ds, h)
     want = MS.halo_add_deltas_plain(xs, ds, h)
     for g, w in zip(got, want, strict=True):
