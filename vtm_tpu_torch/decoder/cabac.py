@@ -71,12 +71,11 @@ _NATIVE = None
 
 def make_cabac_decoder(data: bytes, ctx: "ContextModels", stats=None):
     """Engine factory: native C engine when available (vtm_tpu_torch/native/
-    cabac.c), pure-Python fallback. Tracing and bit statistics always use
-    the Python engine (the native one has neither hook)."""
+    cabac.c), pure-Python fallback. Bit statistics always use the Python
+    engine (the native one has no such hook)."""
     global _NATIVE
-    import os
 
-    if os.environ.get("VTM_TPU_CABAC_TRACE") or stats is not None:
+    if stats is not None:
         d = CabacDecoder(data, ctx)
         d.stats = stats
         return d
@@ -98,8 +97,7 @@ def make_cabac_decoder(data: bytes, ctx: "ContextModels", stats=None):
 class CabacDecoder:
     """Arithmetic decoder over one substream (BinDecoderBase + TBinDecoder)."""
 
-    __slots__ = ("data", "pos", "range", "value", "bits_needed", "ctx", "trace",
-                 "trace_count", "stats")
+    __slots__ = ("data", "pos", "range", "value", "bits_needed", "ctx", "stats")
 
     def __init__(self, data: bytes, ctx: ContextModels):
         self.data = data
@@ -108,8 +106,6 @@ class CabacDecoder:
         self.range = 0
         self.value = 0
         self.bits_needed = 0
-        self.trace = None  # file-like; mirrors the reference D_CABAC channel
-        self.trace_count = 0
         self.stats = None  # BitStats for the analyser build (decoder --stats)
 
     def _read_byte(self) -> int:
@@ -137,13 +133,6 @@ class CabacDecoder:
         lps = ((qq >> 2) * (self.range >> 5) >> 1) + 4
         self.range -= lps
         sr = self.range << 7
-        if self.trace is not None:
-            mps_path = 1 if self.value < sr else 0
-            self.trace.write(
-                f"{self.trace_count} {ctx_id} {self.range + lps}  "
-                f"[{self.range}:{lps}]  {q:2d}(MPS={mps_path})  "
-            )
-            self.trace_count += 1
         if self.value < sr:
             # MPS path
             if self.range < 256:
@@ -172,8 +161,6 @@ class CabacDecoder:
             s1 += (0x7FFF >> r1) & MASK_1
         c.state0[ctx_id] = s0
         c.state1[ctx_id] = s1
-        if self.trace is not None:
-            self.trace.write(f"  -  {bin_val}\n")
         if self.stats is not None:
             self.stats.add_ctx(ctx_id, q, bin_val)
         return bin_val
@@ -192,9 +179,6 @@ class CabacDecoder:
             bin_val = 1
         else:
             bin_val = 0
-        if self.trace is not None:
-            self.trace.write(f"{self.trace_count}  {self.range}  EP={bin_val} \n")
-            self.trace_count += 1
         if self.stats is not None:
             self.stats.ep_bins += 1
         return bin_val
@@ -230,12 +214,6 @@ class CabacDecoder:
             if self.value >= sr:
                 bins += 1
                 self.value -= sr
-        if self.trace is not None:
-            for i in range(num_bins):
-                self.trace.write(
-                    f"{self.trace_count}  {self.range}  EP={(bins >> (num_bins - 1 - i)) & 1} \n"
-                )
-                self.trace_count += 1
         return bins
 
     def _decode_aligned_bins_ep(self, num_bins: int) -> int:
@@ -252,12 +230,6 @@ class CabacDecoder:
             if self.bits_needed >= 0:
                 self.value |= self._read_byte() << self.bits_needed
                 self.bits_needed -= 8
-        if self.trace is not None:
-            for i in range(num_bins):
-                self.trace.write(
-                    f"{self.trace_count}  {self.range}  EP={(bins >> (num_bins - 1 - i)) & 1} \n"
-                )
-                self.trace_count += 1
         return bins
 
     def decode_rem_abs_ep(self, go_rice_par: int, cutoff: int, max_log2_tr_dr: int) -> int:

@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vtm_tpu_torch import trace
 from vtm_tpu_torch.common import rom
 from vtm_tpu_torch.decoder import cs as D
 from vtm_tpu_torch.decoder.cs import CH_C, CH_L, CU, MODE_INTRA, Rect, TREE_C, TU
@@ -104,7 +105,14 @@ class CuReconstructor:
     def finish_slice(self):
         """Deferred sample reconstruction: batch-plan all inter MC of the
         slice, execute the batched kernels, then walk CUs in coding order
-        applying predictions/residuals (intra/IBC/PLT stay order-dependent)."""
+        applying predictions/residuals (intra/IBC/PLT stay order-dependent).
+        Under torch.profiler the span `recon`, with `inter.plan`,
+        `inter.mc`, `inter.dmvr` and `inter.bdof` inside it and a timer a
+        CU kind (trace.py)."""
+        with trace.span("recon"):
+            self._finish_slice()
+
+    def _finish_slice(self):
         from vtm_tpu_torch.decoder import inter_cu
         from vtm_tpu_torch.ops.mc_kernel import McBatch
 
@@ -115,24 +123,27 @@ class CuReconstructor:
         dmvr_jobs = []
         bdof_cus = []
         ref_results = {}
-        for cu in cus:
-            if cu.pred_mode in (D.MODE_INTER, D.MODE_IBC):
-                p = inter_cu.plan_cu_mc(batch, self, cu)
-                if isinstance(p, tuple):
-                    if p[0] == "dmvr":
-                        dmvr_jobs.append((cu, p[1]))
-                    else:
-                        bdof_cus.append(cu)
-                    p = (lambda c=cu: ref_results[id(c)])
-                fins[id(cu)] = p
+        with trace.span("inter.plan"):
+            for cu in cus:
+                if cu.pred_mode in (D.MODE_INTER, D.MODE_IBC):
+                    p = inter_cu.plan_cu_mc(batch, self, cu)
+                    if isinstance(p, tuple):
+                        if p[0] == "dmvr":
+                            dmvr_jobs.append((cu, p[1]))
+                        else:
+                            bdof_cus.append(cu)
+                        p = (lambda c=cu: ref_results[id(c)])
+                    fins[id(cu)] = p
         batch.execute()
         if dmvr_jobs or bdof_cus:
             from vtm_tpu_torch.decoder import refine
 
             if dmvr_jobs:
-                ref_results.update(refine.dmvr_batch(self, self.cs, dmvr_jobs))
+                with trace.span("inter.dmvr"):
+                    ref_results.update(refine.dmvr_batch(self, self.cs, dmvr_jobs))
             if bdof_cus:
-                ref_results.update(refine.bdof_batch(self, self.cs, bdof_cus))
+                with trace.span("inter.bdof"):
+                    ref_results.update(refine.bdof_batch(self, self.cs, bdof_cus))
         ibc = self.cs.sps.ibc
         for cu in cus:
             if ibc:
@@ -142,11 +153,14 @@ class CuReconstructor:
                 if cu.blocks[0] is not None:
                     self._ibc_vpdu_reset(cu)
             if cu.pred_mode == MODE_INTRA:
-                self.recon_intra_cu(cu)
+                with trace.timer("recon.intra"):
+                    self.recon_intra_cu(cu)
             elif cu.pred_mode in (D.MODE_INTER, D.MODE_IBC):
-                inter_cu.recon_inter_cu(self, cu, fins[id(cu)])
+                with trace.timer("recon.inter"):
+                    inter_cu.recon_inter_cu(self, cu, fins[id(cu)])
             else:
-                self.recon_plt_cu(cu)
+                with trace.timer("recon.plt"):
+                    self.recon_plt_cu(cu)
             if ibc:
                 self._ibc_fill_buffer(cu)
 

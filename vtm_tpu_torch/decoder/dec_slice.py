@@ -4,13 +4,16 @@ Behavioral equivalent of DecoderLib/DecSlice.cpp decompressSlice:73 —
 substream split at entry points (tiles / WPP rows), CABAC init/reset rules,
 WPP top-row context sync, per-CTU parse + reconstruct, terminating bits.
 The CU reconstructor runs on the decoder's torch device: its finish_slice
-runs the slice's MC, DMVR and BDOF through the port's kernels.
+runs the slice's MC, DMVR and BDOF through the port's kernels.  Under
+torch.profiler each CTU's parse and MV derivation add to the timers `parse`
+and `mv` (trace.py).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from vtm_tpu_torch import trace
 from vtm_tpu_torch.common.types import SliceType
 from vtm_tpu_torch.decoder import cs as D
 from vtm_tpu_torch.decoder.cabac import CabacDecoder, ContextModels, make_cabac_decoder
@@ -26,8 +29,10 @@ def _ctx_init_id(sh) -> int:
     return t
 
 
-def decompress_slice(dec, sps, pps, ph, sh, r) -> None:
-    """dec: declib.Decoder; r: BitReader positioned at slice data start."""
+def begin_slice(dec, sps, pps, ph, sh) -> None:
+    """The picture's decode state on its first slice, the slice's state (its
+    parameter sets, LMCS, scaling lists, CTU map) and the motion field;
+    dec: declib.Decoder."""
     pic = dec.cur_pic
     # per-picture decode state on first slice
     if not hasattr(pic, "dcs"):
@@ -77,6 +82,12 @@ def decompress_slice(dec, sps, pps, ph, sh, r) -> None:
     if not hasattr(dcs, "mf_inter"):
         M.init_motion_field(dcs)
 
+
+def decompress_slice(dec, sps, pps, ph, sh, r) -> None:
+    """The CTU loop of a slice that begin_slice has set up; dec:
+    declib.Decoder; r: BitReader positioned at slice data start."""
+    pic = dec.cur_pic
+    dcs = pic.dcs
     # remaining bytes of the RBSP = slice data (reader is byte-aligned)
     data = r.data[r.pos >> 3 :]
     # split into substreams using entry point offsets
@@ -90,18 +101,10 @@ def decompress_slice(dec, sps, pps, ph, sh, r) -> None:
     else:
         substreams = [data]
 
-    import os
-
-    trace_file = None
-    if os.environ.get("VTM_TPU_CABAC_TRACE"):
-        if "_trace_file" not in dec.__dict__:
-            dec._trace_file = open(os.environ["VTM_TPU_CABAC_TRACE"], "w")
-        trace_file = dec._trace_file
     dcs.prev_plt.reset()  # DecSlice.cpp:97
     bit_stats = getattr(dec, "bit_stats", None)
     ctx = ContextModels()
     cab = make_cabac_decoder(substreams[0], ctx, bit_stats)
-    cab.trace = trace_file
     ctx.init(sh.qp, _ctx_init_id(sh))
     cab.start()
     reader = SyntaxReader(dcs, cab)
@@ -141,10 +144,7 @@ def decompress_slice(dec, sps, pps, ph, sh, r) -> None:
             qps = [sh.qp, sh.qp]
         if new_substream:
             substream_idx += 1
-            prev_count = cab.trace_count
             cab = make_cabac_decoder(substreams[substream_idx], ctx, bit_stats)
-            cab.trace = trace_file
-            cab.trace_count = prev_count
             cab.start()
             reader = SyntaxReader(dcs, cab)
         else:
@@ -156,12 +156,14 @@ def decompress_slice(dec, sps, pps, ph, sh, r) -> None:
             dcs.motion_lut.clear()
             dcs.motion_lut_ibc.clear()
             dcs.reset_ibc_buffer = True
-        reader.coding_tree_unit(pos, qps, ctu_addr, pic)
+        with trace.timer("parse"):
+            reader.coding_tree_unit(pos, qps, ctu_addr, pic)
         # derive MVs for the CUs parsed for this CTU (order-exact HMVP);
         # sample reconstruction is deferred and batched at end of slice
         new_cus = dcs.cus[prev_cus:]
         prev_cus = len(dcs.cus)
-        pic.recon.derive_cus(new_cus)
+        with trace.timer("mv"):
+            pic.recon.derive_cus(new_cus)
         if cx == tile_x and wpp:
             dec._wpp_ctx = cab.ctx.copy()
             dec._wpp_plt = dcs.prev_plt.copy()  # DecSlice.cpp:239

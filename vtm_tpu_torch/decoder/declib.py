@@ -7,10 +7,14 @@ decoded-picture-hash verification.
 The sample path runs on an explicit torch device: Decoder(device="cuda" |
 "cpu"), with no probe and no placement switch.  Each picture's in-loop
 filter chain runs on that device, and its packed output stays a device
-tensor until the picture's first host use (`Picture.planes`), fetched with
-`.cpu().numpy()`; hash checks wait for it and drain in decode order.  The
-`device_planes` of a reference picture are slices of that tensor, for the
-MC of later slices.
+tensor until the picture's first host use (`Picture.planes`), fetched
+through `ops.to_host`; hash checks wait for it and drain in decode order.
+The `device_planes` of a reference picture are slices of that tensor, for
+the MC of later slices.
+
+Under `torch.profiler` the decode records its spans (vtm_tpu_torch/trace.py):
+`nal`, `slice` (with `slice.header`), `finish`, `fetch` and `hash`, each
+of the picture it works on.
 """
 
 from __future__ import annotations
@@ -21,14 +25,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from vtm_tpu_torch import trace
 from vtm_tpu_torch.bitstream import reader as nalio
 from vtm_tpu_torch.common.params import PicHeader, SliceHeader
 from vtm_tpu_torch.common.types import ChromaFormat
 from vtm_tpu_torch.decoder import filters
 from vtm_tpu_torch.decoder import sei as seilib
 from vtm_tpu_torch.decoder import vlc
-from vtm_tpu_torch.decoder.dec_slice import decompress_slice
+from vtm_tpu_torch.decoder.dec_slice import begin_slice, decompress_slice
 from vtm_tpu_torch.device import resolve_device
+from vtm_tpu_torch.ops import to_host
+from vtm_tpu_torch.ops.filter_chain import to_device
 from vtm_tpu_torch.utils import pic_hash
 
 
@@ -64,6 +71,7 @@ class Picture:
         self.needed_for_output = needed_for_output
         self._pending_packed = None  # device array from the filter chain
         self._decoder = None  # set while a hash verification is pending
+        self.trace_id = None  # trace.new_picture's id, while tracing
         # 4x4 motion field etc. added when inter decode lands
 
     @property
@@ -91,8 +99,9 @@ class Picture:
             return
         self._pending_packed = None
         pl = self._planes
-        for dst, src in zip(pl, split_packed(packed.cpu(), [p.shape for p in pl])):
-            dst[:] = src.numpy().astype(dst.dtype)
+        with trace.span("fetch", pic=self.trace_id):
+            for dst, src in zip(pl, split_packed(to_host(packed), [p.shape for p in pl])):
+                dst[:] = src.numpy().astype(dst.dtype)
 
     def _materialize(self) -> None:
         self._fetch_only()
@@ -109,6 +118,11 @@ class HashResult:
     computed: bytes
     expected: bytes
     hash_type: int
+
+
+def _unpack(ebsp: bytes) -> nalio.NalUnit:
+    with trace.span("nal"):
+        return nalio.parse_nal(ebsp)
 
 
 class Decoder:
@@ -140,10 +154,10 @@ class Decoder:
     def decode_stream(self, data: bytes) -> list[Picture]:
         for ebsp in nalio.split_annexb(data):
             if self.strict:
-                self.decode_nal(nalio.parse_nal(ebsp))
+                self.decode_nal(_unpack(ebsp))
                 continue
             try:
-                self.decode_nal(nalio.parse_nal(ebsp))
+                self.decode_nal(_unpack(ebsp))
             except Exception as e:  # noqa: BLE001 — resilience path
                 self.error_count += 1
                 print(f"warning: NAL decode error skipped: {e}", file=sys.stderr)
@@ -153,6 +167,13 @@ class Decoder:
 
     def decode_nal(self, nal: nalio.NalUnit) -> None:
         t = nal.nal_unit_type
+        if t in nalio.SLICE_NAL_TYPES:
+            self._decode_slice(nal)
+            return
+        with trace.span("nal"):
+            self._decode_other(nal, t)
+
+    def _decode_other(self, nal: nalio.NalUnit, t: int) -> None:
         if t == nalio.NAL_SPS:
             sps = vlc.parse_sps(nal.rbsp)
             self.psm.sps[sps.sps_id] = sps
@@ -166,8 +187,6 @@ class Decoder:
             self.ph = vlc.parse_picture_header(
                 vlc.BitReader(nal.rbsp), self.psm
             )
-        elif t in nalio.SLICE_NAL_TYPES:
-            self._decode_slice(nal)
         elif t == nalio.NAL_PREFIX_SEI:
             for msg in seilib.parse_sei_rbsp(nal.rbsp):
                 if msg.payload_type == seilib.SEI_DECODED_PICTURE_HASH:
@@ -194,6 +213,16 @@ class Decoder:
     # -- internals ----------------------------------------------------------
 
     def _decode_slice(self, nal: nalio.NalUnit) -> None:
+        with trace.span("slice"):
+            with trace.span("slice.header"):
+                sh, ph, pps, sps, r = self._begin_slice(nal)
+                begin_slice(self, sps, pps, ph, sh)
+            decompress_slice(self, sps, pps, ph, sh, r)
+
+    def _begin_slice(self, nal: nalio.NalUnit):
+        """The slice header, the picture it starts (the previous one
+        finished) and its reference lists: (sh, ph, pps, sps, reader at the
+        slice data)."""
         first_flag = nal.rbsp[0] >> 7  # picture_header_in_slice_header_flag
         if first_flag:
             self.finish_picture()
@@ -217,6 +246,7 @@ class Decoder:
                 pps_id=pps.pps_id,
                 is_irap=nal.nal_unit_type in nalio.IRAP_NAL_TYPES,
             )
+            self.cur_pic.trace_id = trace.new_picture(sh.poc)
             if self.pending_hash_sei is not None:
                 self.cur_pic.hash_sei = self.pending_hash_sei
                 self.pending_hash_sei = None
@@ -226,7 +256,7 @@ class Decoder:
         ):
             self.prev_tid0_poc = sh.poc
         self._construct_ref_lists(sh, sps)
-        decompress_slice(self, sps, pps, ph, sh, r)
+        return sh, ph, pps, sps, r
 
     def _construct_ref_lists(self, sh: SliceHeader, sps) -> None:
         """Slice::constructRefPicList (Slice.cpp:458) + checkLDC + symmetric
@@ -358,16 +388,21 @@ class Decoder:
             return
         pic = self.cur_pic
         self.cur_pic = None
+        with trace.span("finish", pic=pic.trace_id):
+            self._finish(pic)
+
+    def _finish(self, pic: Picture) -> None:
         # in-loop filter chain (executeLoopFilters): LMCS inverse -> deblock
         # -> SAO -> ALF/CC-ALF on the device
         filters.apply_loop_filters(self, pic)
         # persist the 4x4 motion field for TMVP from later pictures
         if hasattr(pic, "dcs") and hasattr(pic.dcs, "mf_inter"):
             d = pic.dcs
-            pic.motion = {
-                "inter": d.mf_inter, "ibc": d.mf_ibc, "interdir": d.mf_interdir,
-                "mv": d.mf_mv, "refidx": d.mf_refidx, "slice": d.mf_slice,
-            }
+            with trace.span("finish.motion"):
+                pic.motion = {
+                    "inter": d.mf_inter, "ibc": d.mf_ibc, "interdir": d.mf_interdir,
+                    "mv": d.mf_mv, "refidx": d.mf_refidx, "slice": d.mf_slice,
+                }
         pic._seq = self._decode_seq
         self._decode_seq += 1
         if pic.hash_sei is not None:
@@ -387,8 +422,7 @@ class Decoder:
                 pic.device_planes = split_packed(
                     packed, [p.shape for p in pic._planes])
             else:
-                pic.device_planes = [torch.from_numpy(p).to(self.device)
-                                     for p in pic._planes]
+                pic.device_planes = [to_device(p, self.device) for p in pic._planes]
         self.dpb.append(pic)
         self.output.append(pic)
 
@@ -396,7 +430,8 @@ class Decoder:
         sps = self.psm.sps[pic.sps_id]
         bds = [sps.bit_depth] * len(pic._planes)
         fn = pic_hash.HASH_FUNCS[pic.hash_sei.hash_type]
-        computed = fn(pic._planes, bds)
+        with trace.span("hash", pic=pic.trace_id):
+            computed = fn(pic._planes, bds)
         self.hash_results.append(
             HashResult(pic.poc, computed == pic.hash_sei.digest, computed,
                        pic.hash_sei.digest, pic.hash_sei.hash_type)

@@ -5,11 +5,14 @@ The stage parameters are built on the host from the per-picture state of
 slice decode; the chain runs on the decoder's torch device
 (ops/filter_chain.py) and its packed output stays there until the
 picture's first host use.  After the chain, DMVR-refined MVs go into the
-motion field for the TMVP of later pictures.
+motion field for the TMVP of later pictures.  Under torch.profiler the maps
+are the spans `maps.deblock`, `maps.sao` and `maps.alf`, the motion
+`finish.motion` (trace.py).
 """
 
 from __future__ import annotations
 
+from vtm_tpu_torch import trace
 from vtm_tpu_torch.decoder import motion as M
 from vtm_tpu_torch.ops import alf as ALF
 from vtm_tpu_torch.ops import deblock as DB
@@ -29,21 +32,25 @@ def apply_loop_filters(dec, pic) -> None:
         lmcs_lut = lmcs.inv_lut
     dmaps = None
     if any(not sl.deblocking_disable for sl in pic.slices):
-        dmaps = DB.build_pic_maps(dcs, pic)
+        with trace.span("maps.deblock"):
+            dmaps = DB.build_pic_maps(dcs, pic)
     sao_maps = None
     if dcs.sps.sao and any(sl.sao_enabled[0] or sl.sao_enabled[1] for sl in pic.slices):
-        sao_maps = SAO.build_sao_maps(dcs, pic)
+        with trace.span("maps.sao"):
+            sao_maps = SAO.build_sao_maps(dcs, pic)
     alf_tables = None
     if dcs.sps.alf and any(sl.alf_enabled[0] or sl.alf_enabled[1] or sl.alf_enabled[2]
                            or sl.ccalf_cb_enabled or sl.ccalf_cr_enabled
                            for sl in pic.slices):
-        alf_tables = ALF.build_alf_tables(dcs, pic)
+        with trace.span("maps.alf"):
+            alf_tables = ALF.build_alf_tables(dcs, pic)
     fmt = dcs.chroma_format
     pic._pending_packed = FC.run_filter_chain(
         pic.planes, lmcs_lut, dmaps, sao_maps, alf_tables,
         dcs.sps.bit_depth, fmt.scale_x, fmt.scale_y, dec.device)
     if hasattr(dcs, "mf_mv"):
-        store_refined_motion(dcs)
+        with trace.span("finish.motion"):
+            store_refined_motion(dcs)
 
 
 def store_refined_motion(dcs) -> None:

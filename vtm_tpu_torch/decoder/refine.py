@@ -14,7 +14,7 @@ import numpy as np
 from vtm_tpu_torch.decoder import motion as M
 from vtm_tpu_torch.ops import mc as MC
 from vtm_tpu_torch.ops import refine_kernel as RK
-from vtm_tpu_torch.ops import upload
+from vtm_tpu_torch.ops import to_host, upload
 from vtm_tpu_torch.ops.mc_kernel import McBatch
 
 DMVR_ITER = 2  # DMVR_NUM_ITERATION
@@ -378,7 +378,7 @@ def dmvr_batch(recon, dcs, jobs):
             frs.append((mclx & 15, mcly & 15))
         pre0, pre1, *fr = upload([pres[0], pres[1], *frs[0], *frs[1]], dev)
         search = RK.dmvr_search(pre0, pre1, *fr, bd=bd, dx=dx, dy=dy)
-        search = search.cpu().numpy()
+        search = to_host(search).numpy()
         tx = search[0].astype(np.int64)
         ty = search[1].astype(np.int64)
         mcost = search[2]
@@ -426,8 +426,8 @@ def dmvr_batch(recon, dcs, jobs):
                  for i, pre in enumerate((pre0, pre1))]
         cargs = tuple(tuple(dev_args[8 + 5 * k:8 + 5 * k + 5])
                       for k in range(len(chost)))
-        flat = RK.dmvr_final_pack(largs[0], largs[1], cargs, w=dx, h=dy,
-                                  wc=w_c, hc=h_c, bd=bd).cpu().numpy()
+        flat = to_host(RK.dmvr_final_pack(largs[0], largs[1], cargs, w=dx, h=dy,
+                                          wc=w_c, hc=h_c, bd=bd)).numpy()
         lsz = N * dy * dx
         csz = N * h_c * w_c
         luma_out = [flat[i * lsz:(i + 1) * lsz].reshape(N, dy, dx)
@@ -465,7 +465,7 @@ def dmvr_batch(recon, dcs, jobs):
                 exts.append(ext)
             p0e, p1e = upload(exts, dev)
             res = RK.bdof_blend_batch(p0e, p1e, bd=bd, w=dx, h=dy)
-            blended[bio_idx] = res.cpu().numpy().astype(np.int64)
+            blended[bio_idx] = to_host(res).numpy().astype(np.int64)
 
         chroma_blend = [MC.bi_average(chroma_out[c][0].astype(np.int64),
                                       chroma_out[c][1].astype(np.int64), bd)
@@ -552,7 +552,7 @@ def bdof_batch(recon, dcs, cus):
                 ext[1:dy + 1, 1:dx + 1] = batch.block_result(r["h"][lst][0])
                 exts[lst].append(ext)
         p0e, p1e = upload([np.stack(e) for e in exts], recon.device)
-        res = RK.bdof_blend_batch(p0e, p1e, bd=bd, w=dx, h=dy).cpu().numpy()
+        res = to_host(RK.bdof_blend_batch(p0e, p1e, bd=bd, w=dx, h=dy)).numpy()
         for i, r in enumerate(recs):
             b = r["cu"].blocks[0]
             ly, lx = r["y"] - b.y, r["x"] - b.x

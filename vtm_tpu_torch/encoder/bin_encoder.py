@@ -31,8 +31,6 @@ class BinEncoder:
         self.buffered_byte = 0xFF
         self.num_buffered = 0
         self.bits_left = 23
-        self.trace = None  # file-like; same format as CabacDecoder.trace
-        self.trace_count = 0
 
     def start(self):
         self.low = 0
@@ -70,13 +68,6 @@ class BinEncoder:
         qq = q ^ 0xFF if (q & 0x80) else q
         lps = ((qq >> 2) * (self.range >> 5) >> 1) + 4
         self.range -= lps
-        if self.trace is not None:
-            self.trace.write(
-                f"{self.trace_count} {ctx_id} {self.range + lps}  "
-                f"[{self.range}:{lps}]  {q:2d}(MPS={1 if bin_val == mps else 0})  "
-                f"  -  {bin_val}\n"
-            )
-            self.trace_count += 1
         if bin_val != mps:
             nb = int(_RENORM[lps >> 3])
             self.bits_left -= nb
@@ -102,9 +93,6 @@ class BinEncoder:
         c.state1[ctx_id] = s1
 
     def encode_bin_ep(self, bin_val: int):
-        if self.trace is not None:
-            self.trace.write(f"{self.trace_count}  {self.range}  EP={bin_val} \n")
-            self.trace_count += 1
         self.low <<= 1
         if bin_val:
             self.low += self.range
@@ -115,12 +103,6 @@ class BinEncoder:
     def encode_bins_ep(self, bins: int, num_bins: int):
         if num_bins == 0:
             return
-        if self.trace is not None:
-            for i in range(num_bins):
-                self.trace.write(
-                    f"{self.trace_count}  {self.range}  EP={(bins >> (num_bins - 1 - i)) & 1} \n"
-                )
-                self.trace_count += 1
         if self.range == 256:
             self._encode_aligned_bins_ep(bins, num_bins)
             return

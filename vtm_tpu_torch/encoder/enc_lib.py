@@ -242,12 +242,6 @@ class IntraEncoder:
         slice_bw = BitWriter()
         enc = BinEncoder(slice_bw, ctx)
         enc.start()
-        import os
-        tr_path = os.environ.get("VTM_TPU_ENC_TRACE")
-        if tr_path:
-            if not hasattr(self, "_trace_f"):
-                self._trace_f = open(tr_path, "w")
-            enc.trace = self._trace_f
         w_ctu = dcs.pic_w_ctu
         h_ctu = dcs.pic_h_ctu
         rep_ctx = CuCtx(self.frame_qp)  # slice-persistent QP chain
@@ -1676,12 +1670,6 @@ class InterEncoder(IntraEncoder):
         slice_bw = BitWriter()
         enc = BinEncoder(slice_bw, ctx_m)
         enc.start()
-        import os
-        tr_path = os.environ.get("VTM_TPU_ENC_TRACE")
-        if tr_path:
-            if not hasattr(self, "_trace_f"):
-                self._trace_f = open(tr_path, "w")
-            enc.trace = self._trace_f
         w_ctu = dcs.pic_w_ctu
         h_ctu = dcs.pic_h_ctu
         # CTU-level rate control: remaining-budget R-lambda allocation with

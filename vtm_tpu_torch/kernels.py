@@ -11,7 +11,8 @@ Every launch goes through `launch()`: it passes the caller's pointers and
 the current CUDA stream, raises on a non-zero `cudaError_t` from the entry
 point (its `cudaGetLastError()` right after the launch), and counts the
 launch per kernel.  The counts let a run show that its main path went
-through the kernels.
+through the kernels; under torch.profiler each launch also adds to the
+counter `kernel_launches` of the open span (trace.py).
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import subprocess
 import threading
 
 import torch
+
+from vtm_tpu_torch import trace
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -155,6 +158,7 @@ def launch(name: str, device: torch.device, *args) -> None:
         msg = lib.vtm_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
     _launches[name] += 1
+    trace.count("kernel_launches")
 
 
 def launch_counts() -> dict[str, int]:

@@ -36,9 +36,6 @@ typedef struct {
     Py_buffer b_renorm;
     int renorm_held;
     const int32_t *renorm;
-    PyObject *trace;      /* unused by the native engine (tracing uses the
-                             Python engine); kept for interface parity */
-    long trace_count;
 } NativeCabac;
 
 static void release_ctx_bufs(NativeCabac *self)
@@ -104,9 +101,6 @@ static int nc_init(NativeCabac *self, PyObject *args, PyObject *kwds)
     self->renorm_obj = renorm;
     if (bind_ctx(self, ctx) < 0)
         return -1;
-    Py_INCREF(Py_None);
-    self->trace = Py_None;
-    self->trace_count = 0;
     return 0;
 }
 
@@ -117,7 +111,6 @@ static void nc_dealloc(NativeCabac *self)
         PyBuffer_Release(&self->b_renorm);
     Py_CLEAR(self->renorm_obj);
     Py_CLEAR(self->data_obj);
-    Py_CLEAR(self->trace);
     Py_TYPE(self)->tp_free((PyObject *)self);
 }
 
@@ -1093,8 +1086,6 @@ static int nc_set_ctx(NativeCabac *self, PyObject *value, void *closure)
 static PyMemberDef nc_members[] = {
     {"pos", T_PYSSIZET, offsetof(NativeCabac, pos), 0, "byte position"},
     {"bits_needed", T_INT, offsetof(NativeCabac, bits_needed), 0, ""},
-    {"trace", T_OBJECT, offsetof(NativeCabac, trace), 0, ""},
-    {"trace_count", T_LONG, offsetof(NativeCabac, trace_count), 0, ""},
     {NULL}
 };
 

@@ -3,12 +3,15 @@ version (the CPU path, and the reference the CUDA kernel is held to) and
 the wrapper that launches the CUDA kernel for a CUDA tensor.
 
 The helpers below keep the plain versions in the jax reference's int32
-semantics."""
+semantics.  Every copy between the host and the device on the decode path
+goes through `host_to_device` or `to_host`, which count it (trace.py)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from vtm_tpu_torch import trace
 
 
 def pick(t: torch.Tensor, cuda_fn, plain_fn):
@@ -21,12 +24,29 @@ def pick(t: torch.Tensor, cuda_fn, plain_fn):
     raise ValueError(f"no kernel or plain version for a tensor on {t.device}")
 
 
+def host_to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on `device`, in one copy, counted as `h2d_copies` and
+    `h2d_bytes` (on the CPU too, where the move costs nothing)."""
+    if t.numel():
+        trace.count("h2d_copies")
+        trace.count("h2d_bytes", t.nbytes)
+    return t.to(device)
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """A device tensor on the host, in one copy (a sync), counted as
+    `d2h_copies` (on the CPU too, where the move costs nothing)."""
+    if t.numel():
+        trace.count("d2h_copies")
+    return t.cpu()
+
+
 def upload(arrays, device: torch.device, dtype=np.int32) -> list[torch.Tensor]:
     """numpy arrays as contiguous tensors on `device`, moved in one copy:
     views of one packed buffer, each with its array's shape."""
     flat = [np.asarray(a, dtype=dtype).reshape(-1) for a in arrays]
     buf = torch.from_numpy(np.concatenate(flat) if flat else np.zeros(0, dtype))
-    buf = buf.to(device)
+    buf = host_to_device(buf, device)
     out, pos = [], 0
     for a, f in zip(arrays, flat):
         out.append(buf[pos:pos + f.size].view(np.shape(a)))

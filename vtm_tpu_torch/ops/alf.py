@@ -13,7 +13,7 @@ import numpy as np
 
 from vtm_tpu_torch.common import rom
 from vtm_tpu_torch.ops import alf_kernel as K
-from vtm_tpu_torch.ops import edge_pad
+from vtm_tpu_torch.ops import edge_pad, to_host
 from vtm_tpu_torch.ops.filter_chain import to_device
 
 MAX_NUM_ALF_CLASSES = 25
@@ -329,7 +329,7 @@ def alf_picture(dcs, pic, device) -> None:
                           (1, t["has_cb"] or t["has_cc1"], ocb),
                           (2, t["has_cr"] or t["has_cc2"], ocr)):
         if on:
-            pic.planes[comp][:] = out.cpu().numpy().astype(pic.planes[comp].dtype)
+            pic.planes[comp][:] = to_host(out).numpy().astype(pic.planes[comp].dtype)
 
 
 def build_alf_tables(dcs, pic):

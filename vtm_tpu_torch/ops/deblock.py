@@ -15,6 +15,7 @@ import numpy as np
 
 from vtm_tpu_torch.decoder.cs import CH_C, CH_L, MODE_INTRA, TREE_C
 from vtm_tpu_torch.ops import deblock_kernel as K
+from vtm_tpu_torch.ops import to_host
 from vtm_tpu_torch.ops.filter_chain import DMAP_FIELDS, to_device
 
 TC_TABLE = [
@@ -378,7 +379,7 @@ def _apply_maps(dcs, pic, maps: PicDeblockMaps, edge_dir, device) -> None:
         has_l=has_l, has_cb=has_cb, has_cr=has_cr, sx=fmt.scale_x, sy=fmt.scale_y)
     for on, dst, out in ((has_l, pl, oy), (has_cb, pcb, ocb), (has_cr, pcr, ocr)):
         if on:
-            dst[:] = out.cpu().numpy().astype(dst.dtype)
+            dst[:] = to_host(out).numpy().astype(dst.dtype)
 
 
 def _lf_params(dcs, cu):

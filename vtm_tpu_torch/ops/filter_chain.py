@@ -10,6 +10,8 @@ wrappers (CUDA kernels on a GPU, their plain versions on the CPU).  The
 three planes come back packed into one flat int32 tensor, laid out as the
 reference packs them.  While a decode mesh is active, the chain's luma runs
 width-sharded over the mesh's lanes (parallel/pic_shard.py:run_chain_on_mesh).
+Under `torch.profiler`, `upload_chain` and `chain_body` are the spans
+`chain.upload` and `chain` (vtm_tpu_torch/trace.py).
 """
 
 from __future__ import annotations
@@ -17,9 +19,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vtm_tpu_torch import trace
 from vtm_tpu_torch.ops import alf_kernel as AK
 from vtm_tpu_torch.ops import deblock_kernel as DK
-from vtm_tpu_torch.ops import edge_pad
+from vtm_tpu_torch.ops import edge_pad, host_to_device
 from vtm_tpu_torch.ops import sao_kernel as SK
 
 # PicDeblockMaps fields in deblock_dir's argument order
@@ -30,8 +33,8 @@ DMAP_FIELDS = ("l_active", "l_tc", "l_beta", "l_maxp", "l_maxq", "l_nop",
 _I32 = np.iinfo(np.int32)
 
 
-def to_device(a, device) -> torch.Tensor:
-    """A numpy bool or integer array as a bool or int32 tensor on `device`."""
+def host_tensor(a) -> torch.Tensor:
+    """A numpy bool or integer array as a bool or int32 host tensor."""
     a = np.asarray(a)
     if a.dtype == np.bool_:
         a = np.ascontiguousarray(a)
@@ -43,7 +46,13 @@ def to_device(a, device) -> torch.Tensor:
         raise TypeError(f"filter state must be bool or integer, got {a.dtype}")
     if not a.flags.writeable:  # torch.from_numpy wants a writable buffer
         a = a.copy()
-    return torch.from_numpy(a).to(device)
+    return torch.from_numpy(a)
+
+
+def to_device(a, device) -> torch.Tensor:
+    """A numpy bool or integer array as a bool or int32 tensor on `device`,
+    in one counted copy (ops.host_to_device)."""
+    return host_to_device(host_tensor(a), device)
 
 
 def maps_to_torch(dmaps, sao_maps, alf_tables, device):
@@ -101,31 +110,32 @@ def chain_body(y, cb, cr, lmcs_lut, dbv, dbh, sao, alf,
                bd: int, sx: int, sy: int, fl: tuple) -> torch.Tensor:
     """The chain on device tensors; returns [Y, Cb, Cr] flattened and packed
     (for 4:0:0 the caller passes y as cb and cr, as the reference does)."""
-    (f_lmcs, dvl, dvcb, dvcr, dhl, dhcb, dhcr,
-     s0, s1, s2, a_l, a_cb, a_cr, a_cc1, a_cc2) = fl
-    if f_lmcs:
-        y = lmcs_inverse(y, lmcs_lut)
-    if dvl or dvcb or dvcr:
-        y, cb, cr = DK.deblock_dir(
-            y, cb, cr, *dbv, bit_depth=bd, hor=False,
-            has_l=dvl, has_cb=dvcb, has_cr=dvcr, sx=sx, sy=sy)
-    if dhl or dhcb or dhcr:
-        y, cb, cr = DK.deblock_dir(
-            y, cb, cr, *dbh, bit_depth=bd, hor=True,
-            has_l=dhl, has_cb=dhcb, has_cr=dhcr, sx=sx, sy=sy)
-    if s0:
-        y = SK.sao_apply(y, *sao[0], bit_depth=bd)
-    if s1:
-        cb = SK.sao_apply(cb, *sao[1], bit_depth=bd)
-    if s2:
-        cr = SK.sao_apply(cr, *sao[2], bit_depth=bd)
-    if a_l or a_cb or a_cr or a_cc1 or a_cc2:
-        y_pad = edge_pad(y, AK.PAD, AK.PAD)
-        y, cb, cr = AK.alf_all(
-            y_pad, cb, cr, *alf, bit_depth=bd, sx=sx, sy=sy,
-            has_l=a_l, has_cb=a_cb, has_cr=a_cr,
-            has_cc1=a_cc1, has_cc2=a_cc2)
-    return torch.cat([y.reshape(-1), cb.reshape(-1), cr.reshape(-1)])
+    with trace.span("chain"):
+        (f_lmcs, dvl, dvcb, dvcr, dhl, dhcb, dhcr,
+         s0, s1, s2, a_l, a_cb, a_cr, a_cc1, a_cc2) = fl
+        if f_lmcs:
+            y = lmcs_inverse(y, lmcs_lut)
+        if dvl or dvcb or dvcr:
+            y, cb, cr = DK.deblock_dir(
+                y, cb, cr, *dbv, bit_depth=bd, hor=False,
+                has_l=dvl, has_cb=dvcb, has_cr=dvcr, sx=sx, sy=sy)
+        if dhl or dhcb or dhcr:
+            y, cb, cr = DK.deblock_dir(
+                y, cb, cr, *dbh, bit_depth=bd, hor=True,
+                has_l=dhl, has_cb=dhcb, has_cr=dhcr, sx=sx, sy=sy)
+        if s0:
+            y = SK.sao_apply(y, *sao[0], bit_depth=bd)
+        if s1:
+            cb = SK.sao_apply(cb, *sao[1], bit_depth=bd)
+        if s2:
+            cr = SK.sao_apply(cr, *sao[2], bit_depth=bd)
+        if a_l or a_cb or a_cr or a_cc1 or a_cc2:
+            y_pad = edge_pad(y, AK.PAD, AK.PAD)
+            y, cb, cr = AK.alf_all(
+                y_pad, cb, cr, *alf, bit_depth=bd, sx=sx, sy=sy,
+                has_l=a_l, has_cb=a_cb, has_cr=a_cr,
+                has_cc1=a_cc1, has_cc2=a_cc2)
+        return torch.cat([y.reshape(-1), cb.reshape(-1), cr.reshape(-1)])
 
 
 def run_filter_chain(planes, lmcs_lut, dmaps, sao_maps, alf_tables,
@@ -158,12 +168,13 @@ def run_filter_chain(planes, lmcs_lut, dmaps, sao_maps, alf_tables,
 def upload_chain(planes, lmcs_lut, dmaps, sao_maps, alf_tables, device):
     """The chain's inputs on `device`: (y, cb, cr, lut, dbv, dbh, sao, alf);
     for 4:0:0 cb and cr are y, as the reference passes them."""
-    n_comp = len(planes)
-    y = to_device(planes[0], device)
-    cb = to_device(planes[1], device) if n_comp > 1 else y
-    cr = to_device(planes[2], device) if n_comp > 2 else y
-    dbv, dbh, sao, alf = maps_to_torch(dmaps, sao_maps, alf_tables, device)
-    lut = to_device(lmcs_lut, device) if lmcs_lut is not None else None
+    with trace.span("chain.upload"):
+        n_comp = len(planes)
+        y = to_device(planes[0], device)
+        cb = to_device(planes[1], device) if n_comp > 1 else y
+        cr = to_device(planes[2], device) if n_comp > 2 else y
+        dbv, dbh, sao, alf = maps_to_torch(dmaps, sao_maps, alf_tables, device)
+        lut = to_device(lmcs_lut, device) if lmcs_lut is not None else None
     return y, cb, cr, lut, dbv, dbh, sao, alf
 
 

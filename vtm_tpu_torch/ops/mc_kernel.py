@@ -42,7 +42,8 @@ import numpy as np
 import torch
 
 from vtm_tpu_torch import kernels as KN
-from vtm_tpu_torch.ops import clamp_index, pick, upload
+from vtm_tpu_torch import trace
+from vtm_tpu_torch.ops import clamp_index, pick, to_host, upload
 
 IF_INTERNAL_PREC = 14
 IF_OFFS = 1 << (IF_INTERNAL_PREC - 1)
@@ -166,49 +167,51 @@ def execute_many(batches) -> None:
     """Run several McBatch instances together: per component class, all
     their tiles go into one kernel call over the union of their reference
     planes (one call a lane while a decode mesh is active: mesh_pair), and
-    one device-to-host copy brings every result back."""
+    one device-to-host copy brings every result back; under torch.profiler
+    the span `inter.mc` (trace.py)."""
     batches = [b for b in batches if b.n[True] or b.n[False]]
     if not batches:
         return
-    bd, dev = batches[0].bd, batches[0].device
-    for b in batches:
-        if b.bd != bd or b.device != dev:
-            raise ValueError("execute_many: batches differ in bit depth or device")
-    from vtm_tpu_torch.parallel import mesh as MESH
+    with trace.span("inter.mc"):
+        bd, dev = batches[0].bd, batches[0].device
+        for b in batches:
+            if b.bd != bd or b.device != dev:
+                raise ValueError("execute_many: batches differ in bit depth or device")
+        from vtm_tpu_torch.parallel import mesh as MESH
 
-    dmesh = MESH.decode_mesh()
-    cols = {}
-    for lum in (True, False):
-        planes, slot, jobs = [], {}, []
-        for b in batches:
-            if not b.n[lum]:
-                continue
-            remap = []
-            for p in b.planes[lum]:
-                if id(p) not in slot:
-                    slot[id(p)] = len(planes)
-                    planes.append(p)
-                remap.append(slot[id(p)])
-            r, *rest = b._jobs(lum)
-            jobs.append((np.asarray(remap, dtype=np.int32)[r], *rest))
-        cols[lum] = (planes, [np.concatenate(c) for c in zip(*jobs)]) if jobs else None
-    if dmesh is not None:
-        packed, sizes = mesh_pair(dmesh, cols, bd, dev)
-    else:
-        args = {lum: None if c is None else
-                (c[0], *upload(c[1][:5], dev), *upload(c[1][5:], dev, dtype=np.bool_))
-                for lum, c in cols.items()}
-        packed = mc_tiles_pair(args[True], args[False], bd).cpu().numpy()
-        sizes = {lum: 0 if c is None else len(c[1][0]) for lum, c in cols.items()}
-    off = 0
-    for lum in (True, False):
-        tile = SHAPES[lum][1]
-        for b in batches:
-            size = b.n[lum] * tile * tile
-            if size:
-                b.results[lum] = packed[off:off + size].reshape(-1, tile, tile)
-                off += size
-        off += (sizes[lum] - sum(b.n[lum] for b in batches)) * tile * tile
+        dmesh = MESH.decode_mesh()
+        cols = {}
+        for lum in (True, False):
+            planes, slot, jobs = [], {}, []
+            for b in batches:
+                if not b.n[lum]:
+                    continue
+                remap = []
+                for p in b.planes[lum]:
+                    if id(p) not in slot:
+                        slot[id(p)] = len(planes)
+                        planes.append(p)
+                    remap.append(slot[id(p)])
+                r, *rest = b._jobs(lum)
+                jobs.append((np.asarray(remap, dtype=np.int32)[r], *rest))
+            cols[lum] = (planes, [np.concatenate(c) for c in zip(*jobs)]) if jobs else None
+        if dmesh is not None:
+            packed, sizes = mesh_pair(dmesh, cols, bd, dev)
+        else:
+            args = {lum: None if c is None else
+                    (c[0], *upload(c[1][:5], dev), *upload(c[1][5:], dev, dtype=np.bool_))
+                    for lum, c in cols.items()}
+            packed = to_host(mc_tiles_pair(args[True], args[False], bd)).numpy()
+            sizes = {lum: 0 if c is None else len(c[1][0]) for lum, c in cols.items()}
+        off = 0
+        for lum in (True, False):
+            tile = SHAPES[lum][1]
+            for b in batches:
+                size = b.n[lum] * tile * tile
+                if size:
+                    b.results[lum] = packed[off:off + size].reshape(-1, tile, tile)
+                    off += size
+            off += (sizes[lum] - sum(b.n[lum] for b in batches)) * tile * tile
 
 
 def lane_planes(planes, dev: torch.device) -> list:
@@ -272,7 +275,7 @@ def mesh_pair(mesh, cols, bd: int, dev: torch.device):
                 mc_tiles_cuda(lp, *jobs, taps=taps, tile=tile, bd=bd, out=view)
             else:
                 view.copy_(mc_tiles(lp, *jobs, taps=taps, tile=tile, bd=bd))
-    return flat.cpu().numpy(), sizes
+    return to_host(flat).numpy(), sizes
 
 
 class McBatch:

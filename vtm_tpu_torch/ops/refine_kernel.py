@@ -24,7 +24,7 @@ import torch
 
 from vtm_tpu_torch.common import rom
 from vtm_tpu_torch import kernels as KN
-from vtm_tpu_torch.ops import clamp_index, mul32, pick, shl32
+from vtm_tpu_torch.ops import clamp_index, host_to_device, mul32, pick, shl32
 
 _BILINEAR = np.asarray(rom.get("bilinearFilterPrec4"), dtype=np.int32)  # (16, 2)
 IF_INTERNAL_PREC = 14
@@ -37,7 +37,7 @@ MAX_GROUPS = 6  # job groups a vtm_fir_blocks launch (csrc/refine.cu FIR_MAX_GRO
 
 @lru_cache(maxsize=None)
 def _bilinear_table(device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(_BILINEAR).to(device)
+    return host_to_device(torch.from_numpy(_BILINEAR), device)
 
 
 def _bilinear_batch(pre, fx, fy, w: int, h: int, bd: int):

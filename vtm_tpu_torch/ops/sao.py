@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from vtm_tpu_torch.ops import sao_kernel as SK
+from vtm_tpu_torch.ops import to_host
 from vtm_tpu_torch.ops.filter_chain import to_device
 
 SAO_MODE_OFF, SAO_MODE_NEW, SAO_MODE_MERGE = 0, 1, 2
@@ -35,7 +36,7 @@ def sao_picture(dcs, pic, device) -> None:
         out = SK.sao_apply(to_device(plane, device),
                            *(to_device(a, device) for a in args),
                            bit_depth=dcs.sps.bit_depth)
-        plane[:] = out.cpu().numpy().astype(plane.dtype)
+        plane[:] = to_host(out).numpy().astype(plane.dtype)
 
 
 def build_sao_maps(dcs, pic) -> list:

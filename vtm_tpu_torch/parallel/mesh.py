@@ -37,7 +37,7 @@ import torch
 from vtm_tpu_torch import kernels as KN
 from vtm_tpu_torch.device import resolve_device
 from vtm_tpu_torch.ops import edge_pad, pick
-from vtm_tpu_torch.ops.filter_chain import to_device
+from vtm_tpu_torch.ops.filter_chain import host_tensor
 from vtm_tpu_torch.ops.transform import inv_transform_batch
 
 
@@ -296,7 +296,7 @@ def sharded_recon_step(mesh: CodecMesh, coeff, pred, orig):
     kernel; the lanes' int64 partials are summed exactly, then converted to
     float32.  Returns (int16 recon (F, T, N, N), float32 SSE (1,)), both on
     the first lane's device."""
-    coeff, pred, orig = (a if torch.is_tensor(a) else to_device(a, "cpu")
+    coeff, pred, orig = (a if torch.is_tensor(a) else host_tensor(a)
                          for a in (coeff, pred, orig))
     F, T, N, _ = coeff.shape
     if F % mesh.gop or T % mesh.tile:

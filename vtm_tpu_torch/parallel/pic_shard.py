@@ -30,12 +30,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vtm_tpu_torch import trace
 from vtm_tpu_torch.ops import alf_kernel as AK
 from vtm_tpu_torch.ops import deblock_kernel as DK
 from vtm_tpu_torch.ops import edge_pad
 from vtm_tpu_torch.ops import filter_chain as FC
 from vtm_tpu_torch.ops import sao_kernel as SK
-from vtm_tpu_torch.ops.filter_chain import chain_body, to_device
+from vtm_tpu_torch.ops.filter_chain import chain_body, host_tensor
 from vtm_tpu_torch.ops.mc_kernel import mc_tiles
 from vtm_tpu_torch.parallel import mesh as MS
 
@@ -45,7 +46,7 @@ LUMA_FIELDS = FC.DMAP_FIELDS[:7]
 def _t(a) -> torch.Tensor:
     """A tensor as it is; a numpy array as a host tensor (bool stays bool,
     integers become int32)."""
-    return a if torch.is_tensor(a) else to_device(a, "cpu")
+    return a if torch.is_tensor(a) else host_tensor(a)
 
 
 def _on(a: torch.Tensor, dev) -> torch.Tensor:
@@ -211,22 +212,23 @@ def run_chain_on_mesh(mesh, planes, lmcs_lut, dmaps, sao_maps, alf_tables,
                             home, fl)
     y, cb, cr, lut, dbv, dbh, sao, alf = FC.upload_chain(
         planes, lmcs_lut, dmaps, sao_maps, alf_tables, home)
-    x = FC.lmcs_inverse(y, lut) if f_lmcs else y
-    lanes = [mesh.lane(0, t) for t in range(n)]
-    luma, after_sao = luma_picture(
-        lanes, home, x, dbv[:7] if dvl else None,
-        [m.T.contiguous() for m in dbh[:7]] if dhl else None,
-        sao[0] if s0 else None, alf[:12] if a_l else None, bd,
-        keep_sao=a_cc1 or a_cc2)
-    mesh.routes.append(dict(size=(W, H), route="sharded", lanes=n))
-    fc = (False, False, dvcb, dvcr, False, dhcb, dhcr,
-          False, s1, s2, False, a_cb, a_cr, a_cc1, a_cc2)
-    if any(fc):
-        chroma = chain_body(x if after_sao is None else after_sao, cb, cr, None,
-                            dbv, dbh, sao, alf, bd, sx, sy, fc)[H * W:]
-    else:
-        chroma = torch.cat([cb.reshape(-1), cr.reshape(-1)])
-    return torch.cat([luma.reshape(-1), chroma])
+    with trace.span("chain"):
+        x = FC.lmcs_inverse(y, lut) if f_lmcs else y
+        lanes = [mesh.lane(0, t) for t in range(n)]
+        luma, after_sao = luma_picture(
+            lanes, home, x, dbv[:7] if dvl else None,
+            [m.T.contiguous() for m in dbh[:7]] if dhl else None,
+            sao[0] if s0 else None, alf[:12] if a_l else None, bd,
+            keep_sao=a_cc1 or a_cc2)
+        mesh.routes.append(dict(size=(W, H), route="sharded", lanes=n))
+        fc = (False, False, dvcb, dvcr, False, dhcb, dhcr,
+              False, s1, s2, False, a_cb, a_cr, a_cc1, a_cc2)
+        if any(fc):
+            chroma = chain_body(x if after_sao is None else after_sao, cb, cr, None,
+                                dbv, dbh, sao, alf, bd, sx, sy, fc)[H * W:]
+        else:
+            chroma = torch.cat([cb.reshape(-1), cr.reshape(-1)])
+        return torch.cat([luma.reshape(-1), chroma])
 
 
 def split_mc_jobs(cap, n_dev: int):
