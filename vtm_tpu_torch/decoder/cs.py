@@ -217,6 +217,10 @@ class DecCodingStructure:
         w, h = pps.pic_width, pps.pic_height
         self.pic_w, self.pic_h = w, h
         self.cus: list[CU] = []
+        # each CU's slice_idx and tile_idx by its index in `cus`, grown by
+        # add_cu: availability over many map positions at once
+        self.cu_slice = np.zeros(64, dtype=np.int32)
+        self.cu_tile = np.zeros(64, dtype=np.int32)
         # luma index at 4x4, chroma at 2x2 (chroma coords)
         self.map_l = np.full(((h + 3) >> 2, (w + 3) >> 2), -1, dtype=np.int32)
         cw = w >> self.chroma_format.scale_x if self.chroma_format != ChromaFormat.YUV400 else 0
@@ -265,6 +269,11 @@ class DecCodingStructure:
         self.cus.append(cu)
         cu.tile_idx = self.tile_idx_at(cu.lx, cu.ly)
         cu.slice_idx = self.cur_slice_idx
+        if idx == len(self.cu_slice):
+            self.cu_slice = np.concatenate([self.cu_slice, self.cu_slice])
+            self.cu_tile = np.concatenate([self.cu_tile, self.cu_tile])
+        self.cu_slice[idx] = cu.slice_idx
+        self.cu_tile[idx] = cu.tile_idx
         if cu.tree_type != TREE_C and cu.blocks[0] is not None:
             b = cu.blocks[0]
             self.map_l[b.y >> 2 : b.y1 >> 2, b.x >> 2 : b.x1 >> 2] = idx

@@ -13,6 +13,9 @@ one kernel call per component class, then the DMVR and BDOF CUs batched
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -25,6 +28,51 @@ from vtm_tpu_torch.ops import quant as Q
 from vtm_tpu_torch.ops import transform as TX
 
 BDPCM_IDX = 100  # internal marker
+
+
+class _RefGeometry(NamedTuple):
+    """A reference-sample fill's positions relative to the block's top-left,
+    in the reference's order (xFillReferenceSamples): one position a unit
+    (below-left and left from the bottom up, the corner, above and
+    above-right), and each sample of the line in scan order (the left
+    column from the bottom up, the corner with `mrl` samples each way, the
+    above row) with its unit."""
+
+    unit_dx: np.ndarray
+    unit_dy: np.ndarray
+    line_dx: np.ndarray
+    line_dy: np.ndarray
+    line_unit: np.ndarray
+    line_pos: np.ndarray
+    corner: int  # the corner sample's index in the line
+
+
+@functools.lru_cache(maxsize=4096)
+def _ref_geometry(w: int, h: int, unit_w: int, unit_h: int, pred_size: int,
+                  pred_hsize: int, mrl: int) -> _RefGeometry:
+    total_above = (pred_size + unit_w - 1) // unit_w
+    total_left = (pred_hsize + unit_h - 1) // unit_h
+    num_above = max(w // unit_w, 1)
+    num_left = max(h // unit_h, 1)
+    left_dy = np.concatenate([unit_h * np.arange(num_left),
+                              h + unit_h * np.arange(total_left - num_left)])
+    above_dx = np.concatenate([unit_w * np.arange(num_above),
+                               w + unit_w * np.arange(total_above - num_above)])
+    unit_dx = np.concatenate([np.full(total_left + 1, -1), above_dx])
+    unit_dy = np.concatenate([left_dy[::-1], np.full(total_above + 1, -1)])
+    corner = pred_hsize + mrl
+    n = corner + 1 + pred_size + mrl
+    pos = np.arange(n)
+    line_dx = np.where(pos < corner, -1 - mrl, pos - corner - 1 - mrl)
+    line_dy = np.where(pos < corner, corner - pos - 1 - mrl, -1 - mrl)
+    counts = [pred_hsize - unit_h * (total_left - 1)] + [unit_h] * (total_left - 1) \
+        + [2 * mrl + 1] + [unit_w] * (total_above - 1) \
+        + [pred_size - unit_w * (total_above - 1)]
+    line_unit = np.repeat(np.arange(total_left + total_above + 1), counts)
+    arrays = (unit_dx, unit_dy, line_dx, line_dy, line_unit, pos)
+    for a in arrays:  # shared by every call of this geometry
+        a.flags.writeable = False
+    return _RefGeometry(*arrays, corner)
 
 
 class CuReconstructor:
@@ -424,154 +472,59 @@ class CuReconstructor:
             unit_w = w
         if h <= 2 and cu.isp_mode and comp == 0:
             unit_h = h
-        total_above = (pred_size + unit_w - 1) // unit_w
-        total_left = (pred_hsize + unit_h - 1) // unit_h
-        total_units = total_above + total_left + 1
-        num_above = max(w // unit_w, 1)
-        num_left = max(h // unit_h, 1)
-        num_ar = total_above - num_above
-        num_bl = total_left - num_left
-        ch = 0 if comp == 0 else 1
+        g = _ref_geometry(w, h, unit_w, unit_h, pred_size, pred_hsize, mrl)
         x0, y0 = tu_b.x, tu_b.y
-
-        def avail(px, py) -> bool:
-            return self.is_decomp(comp, px, py) and (
-                self.cs.get_cu_restricted(px, py, x0, y0, ch) is not None
-            )
-
-        flags = [False] * total_units
-        # ordering: [0..total_left-1] below-left(bottom..)/left, [total_left]=AL,
-        # then above and above-right
-        flags[total_left] = avail(x0 - 1, y0 - 1)
-        for i in range(num_above):
-            flags[total_left + 1 + i] = avail(x0 + i * unit_w, y0 - 1)
-        for i in range(num_ar):
-            flags[total_left + 1 + num_above + i] = avail(
-                x0 + w + i * unit_w, y0 - 1
-            )
-        for i in range(num_left):
-            flags[total_left - 1 - i] = avail(x0 - 1, y0 + i * unit_h)
-        for i in range(num_bl):
-            flags[total_left - 1 - num_left - i] = avail(x0 - 1, y0 + h + i * unit_h)
-        num_intra = sum(flags)
+        flags = self._available(comp, x0 + g.unit_dx, y0 + g.unit_dy, x0, y0)
+        num_intra = int(np.count_nonzero(flags))
         top = np.zeros(pred_size + mrl + 2, dtype=np.int64)
         left = np.zeros(pred_hsize + mrl + 2, dtype=np.int64)
-        dc_val = 1 << (self.bit_depth - 1)
         if num_intra == 0:
+            dc_val = 1 << (self.bit_depth - 1)
             top[: pred_size + mrl + 1] = dc_val
             left[: pred_hsize + mrl + 1] = dc_val
             return top, left
-
-        def src(px, py):
-            px = min(max(px, 0), pw - 1)
-            py = min(max(py, 0), ph - 1)
-            return int(plane[py, px])
-
-        if num_intra == total_units:
-            ty = min(max(y0 - 1 - mrl, 0), ph - 1)
-            txs = np.clip(np.arange(x0 - 1 - mrl, x0 + pred_size), 0, pw - 1)
-            top[: pred_size + mrl + 1] = plane[ty, txs]
-            lx = min(max(x0 - 1 - mrl, 0), pw - 1)
-            lys = np.clip(np.arange(y0 - 1 - mrl, y0 + pred_hsize), 0, ph - 1)
-            left[: pred_hsize + mrl + 1] = plane[lys, lx]
-            return top, left
-        # partial: fill available, then pad (mirror of reference logic).
-        # The available reads are rows/columns of the plane with clamped
-        # coordinates, so read both lines once and copy slices: top[j] ==
-        # plane[clamp(y0-1-mrl), clamp(x0-1-mrl+j)] and likewise for left.
-        trow_y = min(max(y0 - 1 - mrl, 0), ph - 1)
-        trow = plane[trow_y, np.clip(np.arange(x0 - 1 - mrl, x0 + pred_size),
-                                     0, pw - 1)]
-        lcol_x = min(max(x0 - 1 - mrl, 0), pw - 1)
-        lcol = plane[np.clip(np.arange(y0 - 1 - mrl, y0 + pred_hsize),
-                             0, ph - 1), lcol_x]
-        # top-left
-        if flags[total_left]:
-            top[0] = trow[0]
-            left[0] = top[0]
-            top[1 : mrl + 1] = trow[1 : mrl + 1]
-            left[1 : mrl + 1] = lcol[1 : mrl + 1]
-        # left/below-left: unit idx total_left-1 down to 1
-        for unit in range(total_left - 1, 0, -1):
-            if flags[unit]:
-                j0 = mrl + 1 + (total_left - 1 - unit) * unit_h
-                left[j0 : j0 + unit_h] = lcol[j0 : j0 + unit_h]
-        if flags[0]:
-            last = unit_h if pred_hsize % unit_h == 0 else pred_hsize % unit_h
-            j0 = mrl + 1 + (total_left - 1) * unit_h
-            left[j0 : j0 + last] = lcol[j0 : j0 + last]
-        # above/above-right
-        for unit in range(total_left + 1, total_units - 1):
-            if flags[unit]:
-                j0 = mrl + 1 + (unit - total_left - 1) * unit_w
-                top[j0 : j0 + unit_w] = trow[j0 : j0 + unit_w]
-        if flags[total_units - 1]:
-            last = unit_w if pred_size % unit_w == 0 else pred_size % unit_w
-            j0 = mrl + 1 + (total_above - 1) * unit_w
-            top[j0 : j0 + last] = trow[j0 : j0 + last]
-        # padding — mirror of the reference's unit-based pad
-        # find first available unit
-        if not flags[0]:
-            first_avail = 1
-            while first_avail < total_units and not flags[first_avail]:
-                first_avail += 1
-            # position of first available sample
-            if first_avail < total_left:
-                first_row = (total_left - first_avail) * unit_h + mrl
-                first_sample = left[first_row]  # left idx: row over predStride
-                first_col = -1
-            elif first_avail == total_left:
-                first_row = mrl
-                first_sample = left[first_row]
-                first_col = -1
-            else:
-                first_col = (first_avail - total_left - 1) * unit_w + 1 + mrl
-                first_sample = top[first_col]
-                first_row = -1
-            # fill left column from bottom up to first_row
-            last_row = pred_hsize + mrl
-            fr = first_row if first_row >= 0 else -1
-            for i in range(last_row, fr, -1):
-                left[i] = first_sample
-            if first_col > 0:
-                for j in range(first_col):
-                    top[j] = first_sample
-            last_avail = first_avail
-        else:
-            last_avail = 0
-        cur = last_avail + 1
-        while cur < total_units:
-            if not flags[cur]:
-                # last available sample
-                if last_avail < total_left:
-                    la_row = (total_left - last_avail - 1) * unit_h + mrl + 1
-                    la_sample = left[la_row]
-                    la_col = -1
-                elif last_avail == total_left:
-                    la_col = mrl
-                    la_sample = top[la_col]
-                    la_row = -1
-                else:
-                    la_col = (last_avail - total_left) * unit_w + mrl
-                    la_sample = top[la_col]
-                    la_row = -1
-                if cur < total_left:
-                    for i in range(la_row - 1, la_row - unit_h - 1, -1):
-                        left[i] = la_sample
-                elif cur == total_left:
-                    for i in range(mrl + 1):
-                        left[i] = la_sample
-                        top[i] = la_sample
-                else:
-                    if cur == total_units - 1:
-                        n = unit_w if pred_size % unit_w == 0 else pred_size % unit_w
-                    else:
-                        n = unit_w
-                    for j in range(la_col + 1, la_col + n + 1):
-                        top[j] = la_sample
-            last_avail = cur
-            cur += 1
+        # the reads: the left column from the bottom up, the corner, the
+        # above row, at clamped coordinates
+        line = plane[np.minimum(np.maximum(y0 + g.line_dy, 0), ph - 1),
+                     np.minimum(np.maximum(x0 + g.line_dx, 0), pw - 1)]
+        if num_intra < len(flags):
+            trace.count("intra.ref_partial")
+            # the padding, in that scan order: each unavailable sample takes
+            # the last available one before it, the leading run the first
+            avail = flags[g.line_unit]
+            line = line[np.maximum.accumulate(
+                np.where(avail, g.line_pos, avail.argmax()))]
+        top[: pred_size + mrl + 1] = line[g.corner:]
+        left[: pred_hsize + mrl + 1] = line[g.corner :: -1]
         return top, left
+
+    def _available(self, comp: int, xs: np.ndarray, ys: np.ndarray,
+                   x0: int, y0: int) -> np.ndarray:
+        """Whether each position (xs, ys) of component `comp` is
+        reconstructed and may be referenced from the block at (x0, y0):
+        is_decomp and cs.get_cu_restricted over all positions at once."""
+        cs = self.cs
+        ph, pw = self.planes[comp].shape
+        # negative coordinates wrap to huge ones as unsigned
+        inside = (xs.view(np.uint64) < pw) & (ys.view(np.uint64) < ph)
+        xs, ys = xs[inside], ys[inside]
+        if comp == 0:
+            sx = sy = 0
+            at = (ys >> 2, xs >> 2)
+            decomp, cu_idx = self.decomp_l[at], cs.map_l[at]
+        else:
+            sx, sy = cs.chroma_format.scale_x, cs.chroma_format.scale_y
+            at = (ys >> 1, xs >> 1)
+            decomp, cu_idx = self.decomp_c[at], cs.map_c[at]
+        ok = decomp & (cu_idx >= 0)
+        ok &= cs.cu_slice[cu_idx] == cs.cur_slice_idx
+        ok &= cs.cu_tile[cu_idx] == cs.tile_idx_at(x0 << sx, y0 << sy)
+        if cs.sps.entropy_coding_sync:
+            log2_ctu = cs.sps.log2_ctu_size
+            ok &= ((xs << sx) >> log2_ctu) <= ((x0 << sx) >> log2_ctu)
+        flags = np.zeros(len(inside), dtype=bool)
+        flags[inside] = ok
+        return flags
 
     def intra_rec_blk(self, tu: TU, comp: int):
         cu = tu.cu
@@ -583,6 +536,7 @@ class CuReconstructor:
         if cu.isp_mode and is_luma:
             raise NotImplementedError("ISP recon")
         if cu.mip_flag and is_luma:
+            trace.count("intra.mip")
             top, left = self.fill_reference_samples(b, cu, comp, 0)
             pred = I.pred_mip(
                 top[1 : b.w + 1], left[1 : b.h + 1], b.w, b.h,

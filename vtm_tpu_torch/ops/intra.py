@@ -14,6 +14,8 @@ matching the reference's refBufUnfiltered rows at stride predStride.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 from vtm_tpu_torch.common import rom
@@ -540,33 +542,27 @@ def _mip_boundary_downsample(full: np.ndarray, dst_len: int) -> np.ndarray:
     return full[:dst_len].copy()
 
 
-def _mip_upsample_1d(dst, src, bndry, src_size_up, src_size_orth, src_step,
-                     src_stride, dst_step, dst_stride, bndry_step, factor):
-    """predictionUpsampling1D on flat int arrays."""
+@functools.cache
+def _mip_matrices(size_id: int) -> np.ndarray:
+    """(modes, redN^2, 2 * boundary size) int64.  Size id 2's matrices have
+    no weight for the first input (the reference's `wpos -= 1`): a zero
+    column stands in for it."""
+    m = rom.mip_matrix(size_id).astype(np.int64)
+    if size_id == 2:
+        m = np.concatenate([np.zeros(m.shape[:2] + (1,), np.int64), m], axis=2)
+    return m
+
+
+def _mip_upsample(src: np.ndarray, before0: np.ndarray, factor: int) -> np.ndarray:
+    """predictionUpsampling1D along axis 1 of `src` (rows, n): each sample
+    becomes `factor` samples interpolated from the one before it (the
+    boundary `before0` ahead of the first) to itself."""
     log2f = floor_log2(factor)
-    off = 1 << (log2f - 1)
-    src_line = 0
-    dst_line = 0
-    bndry_line = bndry_step - 1
-    for _ in range(src_size_orth):
-        before_arr, before_idx = bndry, bndry_line
-        behind_idx = src_line
-        cur = dst_line
-        for _k in range(src_size_up):
-            before_v = int(before_arr[before_idx])
-            behind_v = int(src[behind_idx])
-            scaled_before = before_v << log2f
-            scaled_behind = 0
-            for _pos in range(factor):
-                scaled_before -= before_v
-                scaled_behind += behind_v
-                dst[cur] = (scaled_before + scaled_behind + off) >> log2f
-                cur += dst_step
-            before_arr, before_idx = src, behind_idx
-            behind_idx += src_step
-        bndry_line += bndry_step
-        src_line += src_stride
-        dst_line += dst_stride
+    p = np.arange(1, factor + 1, dtype=np.int64)
+    before = np.concatenate([before0[:, None], src[:, :-1]], axis=1)
+    out = (before[:, :, None] * (factor - p) + src[:, :, None] * p
+           + (1 << (log2f - 1))) >> log2f
+    return out.reshape(src.shape[0], -1)
 
 
 def pred_mip(
@@ -578,66 +574,33 @@ def pred_mip(
     transpose: bool,
     bit_depth: int,
 ) -> np.ndarray:
-    """Matrix intra prediction (MatrixIntraPrediction.cpp)."""
+    """Matrix intra prediction (MatrixIntraPrediction.cpp): the reduced
+    prediction as one matrix product, then the horizontal up-sampling on
+    every `up_v`-th row and the vertical one between those rows."""
     size_id = mip_size_id(w, h)
     bdry_size = 2 if size_id == 0 else 4
     red_pred = 4 if size_id < 2 else 8
     up_h = w // red_pred
     up_v = h // red_pred
-    top_red = _mip_boundary_downsample(top_row.astype(np.int64), bdry_size)
-    left_red = _mip_boundary_downsample(left_col.astype(np.int64), bdry_size)
-    input_size = 2 * bdry_size
-    red = np.concatenate([top_red, left_red])
-    red_t = np.concatenate([left_red, top_red])
-    off0 = int(red[0])
-    off0_t = int(red_t[0])
-    has_first = size_id < 2
-    red = red.copy()
-    red_t = red_t.copy()
-    red[1:] -= off0
-    red_t[1:] -= off0_t
-    red[0] = ((1 << (bit_depth - 1)) - off0) if has_first else 0
-    red_t[0] = ((1 << (bit_depth - 1)) - off0_t) if has_first else 0
-    inp = red_t if transpose else red
-    input_offset = off0_t if transpose else off0
-    matrix = rom.mip_matrix(size_id)[mode_idx].astype(np.int64)  # (redN^2, taps)
-    s = int(np.sum(inp))
-    offset = (1 << (MIP_SHIFT_MATRIX - 1)) - MIP_OFFSET_MATRIX * s
-    red_size = size_id == 2
-    res = np.zeros(red_pred * red_pred, dtype=np.int64)
-    wflat = matrix.ravel()
-    wpos = 0
-    maxv = (1 << bit_depth) - 1
-    for pos in range(red_pred * red_pred):
-        if red_size:
-            wpos -= 1
-        acc = 0 if red_size else int(inp[0]) * int(wflat[wpos])
-        for i in range(1, input_size):
-            acc += int(inp[i]) * int(wflat[wpos + i])
-        res[pos] = max(0, min(maxv, ((acc + offset) >> MIP_SHIFT_MATRIX) + input_offset))
-        wpos += input_size
+    top_row = top_row.astype(np.int64)
+    left_col = left_col.astype(np.int64)
+    top_red = _mip_boundary_downsample(top_row, bdry_size)
+    left_red = _mip_boundary_downsample(left_col, bdry_size)
+    inp = np.concatenate([left_red, top_red] if transpose else [top_red, left_red])
+    input_offset = int(inp[0])
+    inp[1:] -= input_offset
+    inp[0] = ((1 << (bit_depth - 1)) - input_offset) if size_id < 2 else 0
+    offset = (1 << (MIP_SHIFT_MATRIX - 1)) - MIP_OFFSET_MATRIX * int(inp.sum())
+    acc = _mip_matrices(size_id)[mode_idx] @ inp
+    res = np.clip(((acc + offset) >> MIP_SHIFT_MATRIX) + input_offset,
+                  0, (1 << bit_depth) - 1).reshape(red_pred, red_pred)
     if transpose:
-        res = res.reshape(red_pred, red_pred).T.ravel().copy()
-    if up_h > 1 or up_v > 1:
-        dst = np.zeros(w * h, dtype=np.int64)
-        ver_src = res
-        ver_src_step = w
-        ver_src_off = 0
-        if up_h > 1:
-            hor_off = (up_v - 1) * w
-            ver_src_step = w * up_v
-            _mip_upsample_1d(
-                dst[hor_off:], res, left_col.astype(np.int64),
-                red_pred, red_pred, 1, red_pred, 1, ver_src_step, up_v, up_h
-            )
-            ver_src = dst[hor_off:]
-        if up_v > 1:
-            _mip_upsample_1d(
-                dst, ver_src, top_row.astype(np.int64),
-                red_pred, w, ver_src_step if up_h > 1 else w, 1, w, 1, 1, up_v
-            )
-        return dst.reshape(h, w)
-    return res.reshape(h, w)
+        res = res.T
+    if up_h > 1:
+        res = _mip_upsample(res, left_col[up_v - 1 :: up_v], up_h)
+    if up_v > 1:
+        res = _mip_upsample(res.T, top_row, up_v).T
+    return np.ascontiguousarray(res)
 
 
 DIV_SIG_TABLE = [0, 7, 6, 5, 5, 4, 4, 3, 3, 2, 2, 1, 1, 1, 1, 0]
